@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build runs at first use, never at import, and is cached under ``_build/``
+inside the package by a hash of the sources and flags, so a second process
+loads the library without compiling.
+
+Every wrapper counts its launches in ``LAUNCHES``; a run can zero the counts
+(``reset_launch_counts``) and read them after to show which kernels it went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "library", "build_seconds", "launch",
+           "check_cuda_int32"]
+
+PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("viterbi_small.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES: dict[str, int] = {
+    "acs_update_tb": 0,
+    "chainback_tb": 0,
+    "acs_update_inplace": 0,
+    "chainback_inplace": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# extern "C" entry points of csrc/viterbi_small.cu: name -> argtypes.
+_SIGNATURES = {
+    "viterbi_acs_tb": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "viterbi_chainback_inplace": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_build_seconds: list[float] = []
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(put nvcc on PATH or set CUDA_HOME)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Compile (if not cached) and load the kernel library."""
+    so = BUILD_DIR / f"libviterbi_{_source_hash()}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
+        _build_seconds.append(time.perf_counter() - t0)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_seconds() -> float:
+    """Seconds this process spent in nvcc (0.0 when the cache was warm)."""
+    return sum(_build_seconds)
+
+
+def check_cuda_int32(name: str, t: torch.Tensor, shape: tuple) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call one extern "C" launcher on the device's current stream; raise on
+    a non-zero CUDA error code; count the launch."""
+    fn = getattr(library(), fn_name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+    LAUNCHES[counter] += 1

@@ -1,0 +1,214 @@
+"""The four kernels of the port's first slice.
+
+On the CPU, each plain version (``*_ref``, which the wrapper runs for CPU
+tensors) is held word for word against its Pallas function in interpret
+mode, on noisy soft8 and soft16 symbols and the JAX-padded shapes.  Tests
+marked ``cuda`` hold each CUDA kernel against its plain version and skip
+where there is no card.  Tolerance: exact equality (integer arithmetic)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ka9q_viterbi_comparison_tpu as J
+from ka9q_viterbi_comparison_tpu.ops import acs as jacs
+from ka9q_viterbi_comparison_tpu.ops.encoder import encode_frames
+from ka9q_viterbi_comparison_tpu.ops.pallas import inplace as jip, kernels as jk
+from ka9q_viterbi_comparison_tpu_torch.convert import code_from_fields, numeric_from_fields
+from ka9q_viterbi_comparison_tpu_torch.ops.cuda import _build, inplace as pip, kernels as pk
+
+SPECS = [pytest.param("soft8_spec", 4, id="soft8"), pytest.param("soft16_spec", 160, id="soft16")]
+
+
+def ported(jc, jn):
+    return (code_from_fields(jc.name, jc.K, jc.R, jc.polys),
+            numeric_from_fields(**dataclasses.asdict(jn)))
+
+
+def inputs(jc, jn, B, n_bytes, noise, seed):
+    """Noisy symbols ``[T, R, B]`` and metrics ``[S, B]`` (the reset metrics
+    plus a random spread, so every rotation phase moves real values)."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, size=(B, n_bytes), dtype=np.uint8)
+    sym = np.asarray(encode_frames(jc, jn, jnp.asarray(data))).reshape(B, -1, jc.R)
+    sym = np.clip(sym + rng.integers(-noise, noise + 1, size=sym.shape), jn.soft_low, jn.soft_high)
+    m0 = np.asarray(jacs.init_metrics(jc, jn, B)).T + rng.integers(0, 40, size=(jc.num_states, B))
+    return (np.ascontiguousarray(sym.transpose(1, 2, 0), dtype=np.int32),
+            np.ascontiguousarray(m0, dtype=np.int32))
+
+
+def pad_time(s_trb, Tp):
+    out = np.zeros((Tp,) + s_trb.shape[1:], np.int32)
+    out[: s_trb.shape[0]] = s_trb
+    return out
+
+
+def words_u32(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("spec,noise", SPECS)
+@pytest.mark.parametrize("jc", [J.VITERBI27, J.VITERBI29], ids=["viterbi27", "viterbi29"])
+def test_acs_update_tb_ref_matches_pallas(jc, spec, noise):
+    jn = getattr(J, spec)(jc.R)
+    pc, pn = ported(jc, jn)
+    B = 4
+    s, m0 = inputs(jc, jn, B, 8, noise, seed=jc.K)
+    T = s.shape[0]
+    Tp = -(-T // jk.pick_time_block(jc, B)) * jk.pick_time_block(jc, B)
+    s = pad_time(s, Tp)
+    jm, jd = jk.acs_update_tb(jc, jn, jnp.asarray(m0), jnp.asarray(s), T, True)
+    pm, pd = pk.acs_update_tb(pc, pn, torch.from_numpy(m0), torch.from_numpy(s), T)
+    assert pd.shape == (Tp, jc.decision_words, B)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(words_u32(pd)[:T], np.asarray(jd)[:T])
+
+
+@pytest.mark.parametrize("jc", [J.VITERBI27, J.VITERBI29], ids=["viterbi27", "viterbi29"])
+def test_chainback_tb_ref_matches_pallas(jc):
+    jn = J.soft8_spec(jc.R)
+    B = 4
+    s, m0 = inputs(jc, jn, B, 8, 4, seed=3)
+    T = s.shape[0]
+    Tp = -(-T // jk.pick_time_block(jc, B)) * jk.pick_time_block(jc, B)
+    _, jd = jk.acs_update_tb(jc, jn, jnp.asarray(m0), jnp.asarray(pad_time(s, Tp)), T, True)
+    end = np.random.default_rng(4).integers(0, jc.num_states, size=(1, B)).astype(np.int32)
+    want = np.asarray(jk.chainback_tb(jc, jd, jnp.asarray(end), T, True))
+    got = pk.chainback_tb(ported(jc, jn)[0], torch.from_numpy(np.array(jd).view(np.int32)),
+                          torch.from_numpy(end), T)
+    nw = -(-T // 32)
+    assert got.shape == (Tp // 32, B)
+    np.testing.assert_array_equal(words_u32(got)[:nw], want[:nw])
+
+
+@pytest.mark.parametrize("t0", [0, 1, 5, 7])
+@pytest.mark.parametrize("spec,noise", SPECS)
+def test_acs_update_inplace_ref_matches_pallas(spec, noise, t0):
+    jc = J.VITERBI27
+    jn = getattr(J, spec)(2)
+    pc, pn = ported(jc, jn)
+    B = 4
+    s, m0 = inputs(jc, jn, B, 8, noise, seed=10 + t0)
+    T = s.shape[0]
+    s = pad_time(s, jip.pad_time_inplace(jc, T, B))
+    m_pos = m0[jip.rot_perm(jc, t0)]
+    jm, jd = jip.acs_update_inplace(jc, jn, jnp.asarray(m_pos), jnp.asarray(s), T, t0, True)
+    pm, pd = pip.acs_update_inplace(pc, pn, torch.from_numpy(m_pos), torch.from_numpy(s), T, t0)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(words_u32(pd)[:T], np.asarray(jd)[:T])
+
+
+def test_acs_update_inplace_ref_k9():
+    jc, jn = J.VITERBI29, J.soft8_spec(2)
+    pc, pn = ported(jc, jn)
+    s, m0 = inputs(jc, jn, 3, 4, 4, seed=21)
+    T = s.shape[0]
+    s = pad_time(s, jip.pad_time_inplace(jc, T, 3))
+    m_pos = m0[jip.rot_perm(jc, 3)]
+    jm, jd = jip.acs_update_inplace(jc, jn, jnp.asarray(m_pos), jnp.asarray(s), T, 3, True)
+    pm, pd = pip.acs_update_inplace(pc, pn, torch.from_numpy(m_pos), torch.from_numpy(s), T, 3)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(words_u32(pd)[:T], np.asarray(jd)[:T])
+
+
+@pytest.mark.parametrize("t0", [0, 1, 5, 7])
+def test_chainback_inplace_ref_matches_pallas(t0):
+    jc, jn = J.VITERBI27, J.soft8_spec(2)
+    B = 4
+    s, m0 = inputs(jc, jn, B, 8, 4, seed=30 + t0)
+    T = s.shape[0]
+    Tp = jip.pad_time_inplace(jc, T, B)
+    _, jd = jip.acs_update_inplace(jc, jn, jnp.asarray(m0[jip.rot_perm(jc, t0)]),
+                                   jnp.asarray(pad_time(s, Tp)), T, t0, True)
+    jd = jd[: -(-T // jip.CB_TB) * jip.CB_TB]
+    end = np.random.default_rng(t0).integers(0, jc.num_states, size=(1, B)).astype(np.int32)
+    want = np.asarray(jip.chainback_inplace(jc, jd, jnp.asarray(end), T, True, t0))
+    got = pip.chainback_inplace(ported(jc, jn)[0], torch.from_numpy(np.array(jd).view(np.int32)),
+                                torch.from_numpy(end), T, t0)
+    nw = -(-T // 32)
+    np.testing.assert_array_equal(words_u32(got)[:nw], want[:nw])
+
+
+def test_rot_perm_matches_and_inverts():
+    jc = J.VITERBI27
+    pc = ported(jc, J.soft8_spec(2))[0]
+    for t in range(8):
+        fwd, inv = pip.rot_perm(pc, t), pip.rot_perm(pc, t, inverse=True)
+        np.testing.assert_array_equal(fwd, jip.rot_perm(jc, t))
+        np.testing.assert_array_equal(inv, jip.rot_perm(jc, t, inverse=True))
+        np.testing.assert_array_equal(fwd[inv], np.arange(pc.num_states))
+
+
+def test_smem_budget_formula():
+    """One K=7 block: two metric buffers (or one in place), the table, 32
+    staged steps of symbols and two steps of decision bytes."""
+    pc = ported(J.VITERBI27, J.soft8_spec(2))[0]
+    assert pk.acs_smem_bytes(pc, False) == 4 * (128 + 32 + 64) + 128
+    assert pk.acs_smem_bytes(pc, True) == 4 * (64 + 32 + 64) + 128
+
+
+def test_kernel_checks_refuse_cpu_and_wrong_inputs():
+    t = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check_cuda_int32("x", t, (4, 2))
+    with pytest.raises(ValueError, match="t_real"):
+        pk.acs_update_tb_ref(ported(J.VITERBI27, J.soft8_spec(2))[0], J.soft8_spec(2),
+                             torch.zeros((64, 2), dtype=torch.int32),
+                             torch.zeros((8, 2, 2), dtype=torch.int32), 9)
+
+
+# -- on the card: each CUDA kernel against its plain version ---------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _card_inputs(B=130, n_bytes=24, seed=7):
+    jc, jn = J.VITERBI27, J.soft8_spec(2)
+    s, m0 = inputs(jc, jn, B, n_bytes, 4, seed)
+    pc, pn = ported(jc, jn)
+    return pc, pn, torch.from_numpy(s).cuda(), torch.from_numpy(m0).cuda(), s.shape[0]
+
+
+@pytest.mark.cuda
+def test_cuda_acs_update_tb(cuda_device):
+    pc, pn, s, m0, T = _card_inputs()
+    km, kd = pk.acs_update_tb(pc, pn, m0, s, T)
+    rm, rd = pk.acs_update_tb_ref(pc, pn, m0, s, T)
+    assert torch.equal(km, rm) and torch.equal(kd[:T], rd[:T])
+    assert _build.LAUNCHES["acs_update_tb"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_chainback_tb(cuda_device):
+    pc, pn, s, m0, T = _card_inputs(seed=8)
+    _, d = pk.acs_update_tb(pc, pn, m0, s, T)
+    end = torch.randint(0, 64, (1, s.shape[2]), dtype=torch.int32, device="cuda")
+    nw = -(-T // 32)
+    assert torch.equal(pk.chainback_tb(pc, d, end, T)[:nw], pk.chainback_tb_ref(pc, d, end, T)[:nw])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t0", [0, 1, 5, 7])
+def test_cuda_acs_update_inplace(cuda_device, t0):
+    pc, pn, s, m0, T = _card_inputs(seed=9)
+    km, kd = pip.acs_update_inplace(pc, pn, m0, s, T, t0)
+    rm, rd = pip.acs_update_inplace_ref(pc, pn, m0, s, T, t0)
+    assert torch.equal(km, rm) and torch.equal(kd[:T], rd[:T])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t0", [0, 1, 5, 7])
+def test_cuda_chainback_inplace(cuda_device, t0):
+    pc, pn, s, m0, T = _card_inputs(seed=10)
+    _, d = pip.acs_update_inplace(pc, pn, m0, s, T, t0)
+    end = torch.randint(0, 64, (1, s.shape[2]), dtype=torch.int32, device="cuda")
+    nw = -(-T // 32)
+    assert torch.equal(pip.chainback_inplace(pc, d, end, T, t0)[:nw],
+                       pip.chainback_inplace_ref(pc, d, end, T, t0)[:nw])
