@@ -154,9 +154,9 @@ class NumericSpec:
       changes any compare-select decision, so decoded bits are identical as
       long as the accumulator cannot overflow between renorms.
     * ``metric_dtype``: metric *storage* dtype of the large-K kernels
-      (``"auto"``, ``"int16"`` or ``"int32"``).  Carried so a spec converts
-      field for field; no kernel of the port reads it yet (the large-K
-      kernels are a later slice).
+      (``"auto"``, ``"int16"`` or ``"int32"``).  The port's large-K pair
+      kernel reads it to pick the JAX package's renormalisation schedule
+      (``ops/cuda/large_k2.renorm_schedule``); its storage stays int32.
     """
 
     name: str

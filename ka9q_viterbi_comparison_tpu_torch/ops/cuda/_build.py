@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes``.  The
-build runs at first use, never at import, and is cached under ``_build/``
-inside the package by a hash of the sources and flags, so a second process
-loads the library without compiling.
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
+shared libraries with a plain C interface and loaded with ``ctypes``: one
+``nvcc`` per source, all started together.  The build runs at first use,
+never at import, and is cached under ``_build/`` inside the package by a
+hash of the sources and flags, so a second process loads the libraries
+without compiling.
 
 Every wrapper counts its launches in ``LAUNCHES``; a run can zero the counts
 (``reset_launch_counts``) and read them after to show which kernels it went
@@ -30,7 +31,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "library", "build_seconds", "launc
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("viterbi_small.cu",)
+SOURCES = ("viterbi_small.cu", "viterbi_large.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,16 +40,22 @@ LAUNCHES: dict[str, int] = {
     "chainback_tb": 0,
     "acs_update_inplace": 0,
     "chainback_inplace": 0,
+    "acs_update_large2": 0,
+    "acs_update_large": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# extern "C" entry points of csrc/viterbi_small.cu: name -> argtypes.
+_L = ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
+# extern "C" entry points of the sources: name -> argtypes.
 _SIGNATURES = {
     "viterbi_acs_tb": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),
     "viterbi_chainback_inplace": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _L, _L, _P),
 }
 
 _build_seconds: list[float] = []
@@ -78,25 +85,33 @@ def _source_hash() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Compile (if not cached) and load the kernel library."""
-    so = BUILD_DIR / f"libviterbi_{_source_hash()}.so"
-    if not so.exists():
+def library() -> dict[str, ctypes._CFuncPtr]:
+    """Compile (if not cached) and load the kernel libraries; returns the
+    extern "C" launchers by name."""
+    sos = [BUILD_DIR / f"lib{pathlib.Path(src).stem}_{_source_hash()}.so" for src in SOURCES]
+    if not all(so.exists() for so in sos):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+        tmps = [so.with_suffix(f".{os.getpid()}.tmp") for so in sos]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, tmp in zip(SOURCES, tmps)]
+        errs = [proc.communicate()[1] for proc in procs]
+        failed = [f"{src} ({proc.returncode}):\n{err}"
+                  for src, proc, err in zip(SOURCES, procs, errs) if proc.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for tmp, so in zip(tmps, sos):
+            os.replace(tmp, so)  # atomic: a concurrent build never sees a partial file
         _build_seconds.append(time.perf_counter() - t0)
-    lib = ctypes.CDLL(str(so))
+    libs = [ctypes.CDLL(str(so)) for so in sos]
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return fns
 
 
 def build_seconds() -> float:
@@ -118,7 +133,7 @@ def check_cuda_int32(name: str, t: torch.Tensor, shape: tuple) -> None:
 def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
     """Call one extern "C" launcher on the device's current stream; raise on
     a non-zero CUDA error code; count the launch."""
-    fn = getattr(library(), fn_name)
+    fn = library()[fn_name]
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -86,11 +86,16 @@ def acs_update_inplace_ref(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb:
     m, words = _state_order_words(code, numeric, m_state.T,
                                   symbols_trb[:t_real].permute(2, 0, 1))
     m_pos = m.T[idx(rot_perm(code, t0 + t_real))]
-    bits = unpack_words_to_bits(words)[..., :S]  # [B, t, S] state order
-    perms = idx(np.stack([rot_perm(code, t0 + t + 1) for t in range(t_real)]))  # [t, S]
-    bits_pos = bits.gather(2, perms[None].expand(B, -1, -1))
     dec = torch.zeros((Tp, code.decision_words, B), dtype=torch.int32, device=dev)
-    dec[:t_real] = _pack_decisions(bits_pos).permute(1, 2, 0)
+    # Steps in chunks, so that the unpacked bits of one chunk stay near
+    # 2^27 elements (K=15 at B=256 would need 8.6e9 at once).
+    chunk = max(1, (1 << 27) // (B * max(S, 32)))
+    for lo in range(0, t_real, chunk):
+        hi = min(lo + chunk, t_real)
+        bits = unpack_words_to_bits(words[:, lo:hi])[..., :S]  # [B, c, S] state order
+        perms = idx(np.stack([rot_perm(code, t0 + t + 1) for t in range(lo, hi)]))  # [c, S]
+        bits_pos = bits.gather(2, perms[None].expand(B, -1, -1))
+        dec[lo:hi] = _pack_decisions(bits_pos).permute(1, 2, 0)
     return m_pos.contiguous(), dec
 
 

@@ -17,7 +17,7 @@ from ka9q_viterbi_comparison_tpu_torch.convert import (
     decoder_state_from_numpy,
     numeric_from_fields,
 )
-from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, flags
+from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, flags, large_k2
 from ka9q_viterbi_comparison_tpu_torch.utils.bits import count_bit_errors
 
 ROUTES = [pytest.param("1", id="inplace"), pytest.param("0", id="state_order")]
@@ -156,11 +156,18 @@ def test_functional_matches_jax():
     np.testing.assert_array_equal(fn(sym).numpy(), want)
 
 
-def test_large_k_routes_to_later_slice():
+def test_large_k_routes_to_later_slice(monkeypatch):
+    """K=24 (ICE) takes the large-K pair kernel: the JAX package's depth-4
+    kernel, its route there, is a later slice of the port."""
     pc, pn = P.VITERBI224, P.soft8_spec(2)
+    calls = []
+    real = large_k2.acs_update_large2
+    monkeypatch.setattr(large_k2, "acs_update_large2",
+                        lambda *a, **k: calls.append(a[3].shape) or real(*a, **k))
     dec = P.ViterbiDecoder(pc, pn, batch=1, backend="cuda", device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        dec.update(torch.zeros((1, 4, 2), dtype=torch.int32))
+    dec.update(torch.zeros((1, 2, 2), dtype=torch.int32))
+    assert calls == [(1, 2, 2)]
+    assert dec.metrics.shape == (1, pc.num_states)
     with pytest.raises(ValueError):
         P.ViterbiDecoder(pc, pn, batch=1, backend="pallas", device="cpu")
 
