@@ -3,18 +3,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
-together), holds each of the six kernels against its plain PyTorch version on
-the card, then drives three decode paths through
-``ViterbiDecoder(backend="cuda")``, each with the launch counts zeroed just
-before it and read just after:
+together), holds each of the nine kernels against its plain PyTorch version on
+the card, then drives four paths, the first three through
+``ViterbiDecoder(backend="cuda")`` and the fourth through
+``dispatch.phase_fns``, each with the launch counts zeroed just before it and
+read just after:
 
 * VITERBI27 (K=7, r=1/2) soft8, 1024-byte frames: B=512 (the in-place pair)
   and B=64 (the state-order pair);
 * VITERBI615 (K=15, r=1/6, Cassini) soft8, 256-byte frames: B=256 (the
   in-place pair) and B=64 (the large-K pair kernel, whole frames and in two
   blocks of 1031 steps, whose odd tails run the single-step kernel);
-* VITERBI224 (K=24, r=1/2, ICE) soft8, 8-byte frames at B=8 (the large-K
-  pair kernel and its odd tail).
+* VITERBI224 (K=24, r=1/2, ICE) soft8, 8-byte frames (T = 87) at B=8: the
+  depth-4 quad kernel (21 quads), its three-step remainder on the pair and
+  step kernels, the portable walk;
+* the same ICE frames through ``phase_fns``: the update that returns the
+  byte-packed f8 walk table (the quad kernel in fields mode over ten quad
+  pairs, after 7 lead steps on the pair and step kernels) and the
+  8-steps-a-fetch table walk; and, asked for 7 of the 8 bytes, the f4 route.
 
 Then it times the kernels and the decoders' phases with CUDA events.  Every
 number line carries the card's name and power limit.  The last three lines
@@ -39,6 +45,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
+    CodeSpec,
     VITERBI27,
     VITERBI224,
     VITERBI615,
@@ -46,6 +53,7 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     soft8_spec,
     soft16_spec,
 )
+from ka9q_viterbi_comparison_tpu_torch.ops import radix_planes  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
     dispatch,
@@ -53,6 +61,7 @@ from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     kernels,
     large_k,
     large_k2,
+    large_k4,
 )
 from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_frames  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.utils.bits import count_bit_errors  # noqa: E402
@@ -75,6 +84,8 @@ SOURCE = {name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_small.cu" for na
           ("acs_update_tb", "chainback_tb", "acs_update_inplace", "chainback_inplace")}
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large.cu" for name in
                ("acs_update_large2", "acs_update_large")})
+SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large4.cu" for name in
+               ("acs_update_large4", "acs_update_large4_fields", "acs_update_large4_fields8")})
 REPLACES = {
     "acs_update_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:227",
     "chainback_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:361",
@@ -82,7 +93,11 @@ REPLACES = {
     "chainback_inplace": "ka9q_viterbi_comparison_tpu/ops/pallas/inplace.py:630",
     "acs_update_large2": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k2.py:340",
     "acs_update_large": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k.py:167",
+    "acs_update_large4": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:358",
+    "acs_update_large4_fields": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:512",
+    "acs_update_large4_fields8": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:669",
 }
+ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
 
 
 def card_tag() -> str:
@@ -146,6 +161,17 @@ def acs_bound_ms(B, T, code=CODE) -> tuple[float, str]:
     return bound(nbytes, ops)
 
 
+def fields_bound_ms(B, T, lead, code) -> tuple[float, str]:
+    """Least time of a fields-form update: as ``acs_bound_ms``, but the
+    T - lead quad steps write a table of one word per 32 states and step in
+    place of words (the lead steps' words are dropped: no bytes), and carry
+    the path field with one more select per state and step."""
+    S, W, R = code.num_states, code.decision_words, code.R
+    nbytes = 4 * B * (T * R + 2 * S + (T - lead) * W)
+    ops = B * (T * ((1 << R) * R + 6 * S) + (T - lead) * S)
+    return bound(nbytes, ops)
+
+
 def chainback_bound_ms(B, T, rotated) -> tuple[float, str]:
     """Least time of one traceback: the walk reads one word per step and
     frame (what the data needs), the end state, and writes T/32 words; per
@@ -195,7 +221,7 @@ def compare_large(name, fn, ref, args, kwargs=None):
     want = ref(*args, **kwargs)
     torch.cuda.synchronize()
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    print(f"{name}: max_abs_err {err} (offset of frame 0: {int(got[2][0])})")
+    print(f"{name}: max_abs_err {err} (offset of frame 0: {int(got[-1][0])})")
     return check(name, err), got
 
 
@@ -341,6 +367,138 @@ def phase_kernels_large(tag, rng, errs):
     print(f"[{tag}] large-K kernels and K=15 shapes vs plain versions: all bit-identical")
 
 
+def phase_kernels_quad(tag, rng, errs):
+    """The depth-4 quad kernel in its three forms (words, f4 table, f8
+    table) and the pair kernel's G_2 planes, each against its plain
+    version: at the ICE paths' own shapes, at ICE with soft16 symbols so
+    that every renormalisation cadence fires, at the remainders 1 and 2, and
+    at a small K (time-major words, R=1)."""
+    ice, s8, s16 = VITERBI224, soft8_spec(2), soft16_spec(2)
+    forms = ("acs_update_large4", "acs_update_large4_fields", "acs_update_large4_fields8")
+
+    def note(name, e):
+        errs[name] = max(errs[name], e)
+
+    def three(label, code, numeric, m, sym, leads=(ICE_LEAD4, ICE_LEAD8)):
+        out = {}
+        for name, lead in zip(forms, ((), (leads[0],), (leads[1],))):
+            e, got = compare_large(f"{name} {label}", getattr(large_k4, name),
+                                   getattr(large_k4, name + "_ref"), (code, numeric, m, sym, *lead))
+            note(name, e)
+            out[name] = got[0]
+            del got
+            torch.cuda.empty_cache()
+        return out
+
+    # The ICE paths' shapes: B=8, T=87, soft8 (no renormalisation).
+    _, sym = noisy_symbols(s8, B_ICE, rng, 3, ice, ICE_BYTES)
+    T = sym.shape[1]
+    assert large_k4.renorm_schedule4(ice, s8, T)[1] == 0
+    three(f"ice soft8 B={B_ICE} T={T}", ice, s8, metrics0(ice, s8, B_ICE, state_major=False), sym)
+    # Remainders 1 and 2 (T=87 has 3) from lifted metrics.
+    m_lift = metrics0(ice, s8, 2, state_major=False) + torch.randint(
+        0, 9, (2, ice.num_states), dtype=torch.int32, device="cuda")
+    for t in (85, 86):
+        e, _ = compare_large(f"acs_update_large4 ice soft8 B=2 T={t}", large_k4.acs_update_large4,
+                             large_k4.acs_update_large4_ref,
+                             (ice, s8, m_lift, sym[:2, :t].contiguous()))
+        note("acs_update_large4", e)
+    del m_lift
+    # soft16: every 7 quads (21 quads: the third shift follows the last quad
+    # and runs frame_sub_kernel) and every 3 quad pairs.
+    assert large_k4.renorm_schedule4(ice, s16, T)[1] == 7
+    assert large_k4.renorm_schedule4(ice, s16, T, None, 8)[1] == 3
+    _, sym16 = noisy_symbols(s16, 2, rng, 160, ice, ICE_BYTES)
+    finals = three(f"ice soft16 B=2 T={T} (renormalising)", ice, s16,
+                   metrics0(ice, s16, 2, state_major=False), sym16)
+    if not bool((finals["acs_update_large4_fields"].amin(dim=1) == 0).all()):
+        raise SystemExit("FAIL: the renormalisation after the last quad was not applied")
+    del finals
+    # A small trellis: K=12 r=1/2 at B=64, time-major words; K=13 r=1.
+    k12 = CodeSpec("k12r2", 12, 2, (0o6731, 0o5247))
+    _, sym12 = noisy_symbols(s8, 64, rng, 3, k12, 10)
+    m12 = metrics0(k12, s8, 64, state_major=False)
+    e, _ = compare_large(f"acs_update_large4 k12 B=64 T={sym12.shape[1]} time-major",
+                         large_k4.acs_update_large4, large_k4.acs_update_large4_ref,
+                         (k12, s8, m12, sym12), {"time_major": True})
+    note("acs_update_large4", e)
+    three(f"k12 B=64 T={sym12.shape[1]}", k12, s8, m12, sym12, (11 % 4, 11 % 8))
+    k13 = CodeSpec("k13r1", 13, 1, (0o16731,))
+    _, sym13 = noisy_symbols(soft8_spec(1), 16, rng, 3, k13, 11)
+    three(f"k13 r=1 B=16 T={sym13.shape[1]}", k13, soft8_spec(1),
+          metrics0(k13, soft8_spec(1), 16, state_major=False), sym13, (0, 4))
+    # The pair kernel's G_2 planes: against its plain version (a gather from
+    # the words) and against the v=1 combine of ``build_plane_tables``.
+    e, (_, words, g2, _) = compare_large(
+        "acs_update_large2 want_g2 k12 B=64", large_k2.acs_update_large2,
+        large_k2.acs_update_large2_ref, (k12, s8, m12, sym12), {"want_g2": True})
+    combine = radix_planes.build_plane_tables(k12, words.transpose(0, 1), 0)["g2"]
+    e = max(e, check("acs_update_large2 want_g2 vs the v=1 combine",
+                     max_abs_err(g2.transpose(0, 1).contiguous(), combine)))
+    note("acs_update_large2", e)
+    torch.cuda.empty_cache()
+    print(f"[{tag}] depth-4 kernels (words, f4, f8) and G_2 planes vs plain versions: "
+          f"all bit-identical")
+
+
+def drive_phase_fns(tag, rng):
+    """The ICE frames through ``dispatch.phase_fns``: the launch counts are
+    zeroed just before and read just after.  Whole frames take the f8 route
+    (noiseless: 0 bit errors, path metric 0; noisy: bytes and every state's
+    metric + offset equal to ``backend="torch"``); asked for 7 of the 8
+    bytes, the same noisy frames take the f4 route."""
+    code, numeric, B = VITERBI224, soft8_spec(2), B_ICE
+    nbits = ICE_BYTES * 8
+    data, clean = noisy_symbols(numeric, B, rng, 0, code, ICE_BYTES)
+    noisy_data, noisy = noisy_symbols(numeric, B, rng, 3, code, ICE_BYTES)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    init_fn, update_fn, chainback_fn, prepare_fn = dispatch.phase_fns(code, numeric, nbits, B)[:4]
+    outs = []
+    for sym in (clean, noisy):
+        m, table, off = update_fn(init_fn(B), prepare_fn(sym))
+        if not (isinstance(table, dict) and set(table) == {"f8"}):
+            raise SystemExit("FAIL: the ICE phase_fns update did not return an f8 table")
+        outs.append((m, off, chainback_fn(table)))
+        del table
+    init7, update7, chainback7, prepare7 = dispatch.phase_fns(code, numeric, nbits - 8, B)[:4]
+    m7, table7, off7 = update7(init7(B), prepare7(noisy))
+    if set(table7) != {"f4"}:
+        raise SystemExit("FAIL: the ICE phase_fns update for part of a frame did not return f4")
+    out7 = chainback7(table7)
+    del table7
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[{tag}] ICE phase_fns path launches: {json.dumps(launches)}")
+    for name in ("acs_update_large4_fields8", "acs_update_large4_fields", "acs_update_large2",
+                 "acs_update_large"):
+        if launches[name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was not launched on the ICE phase_fns path")
+
+    (m, off, decoded), (mn, offn, dec_noisy) = outs
+    errors = count_bit_errors(decoded, data)
+    pm_ok = bool((m[:, 0] + off == 0).all())
+    ref = ViterbiDecoder(code, numeric, B, "torch")
+    ref.update(noisy)
+    ref_bytes = ref.chainback(nbits)
+    same = bool(torch.equal(dec_noisy, ref_bytes))
+    total = ref.metrics + ref.renorm_offset[:, None]
+    del ref
+    m_same = bool(torch.equal(mn + offn[:, None], total))
+    same7 = bool(torch.equal(out7, ref_bytes[:, :ICE_BYTES - 1]))
+    m7_same = bool(torch.equal(m7 + off7[:, None], total))
+    print(f"[{tag}] decode ICE phase_fns B={B} {ICE_BYTES}-byte frames, f8 route: noiseless bit "
+          f"errors {errors}, path metric 0 on all frames {pm_ok}, noisy equal to backend=torch "
+          f"{same} (metrics + offset {m_same}), noisy bit errors "
+          f"{count_bit_errors(dec_noisy, noisy_data)}; f4 route ({ICE_BYTES - 1} bytes asked): "
+          f"equal to backend=torch {same7} (metrics + offset {m7_same})")
+    if errors or not (pm_ok and same and m_same and same7 and m7_same) \
+            or decoded.shape != (B, ICE_BYTES):
+        raise SystemExit("FAIL: end-to-end ICE phase_fns decode")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
     """One decode path through the user's entry point: the launch counts are
     zeroed just before it and read just after.  ``runs``: (batch, step
@@ -391,8 +549,8 @@ def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
 
 
 def phase_decode(tag, rng):
-    """The three decode paths; returns the launches of each kernel summed
-    over the paths."""
+    """The four paths; returns the launches of each kernel summed over the
+    paths."""
     paths = [
         drive_path(tag, "K=7", CODE, soft8_spec(2), FRAME_BYTES, [(B_INPLACE, None), (B_TB, None)],
                    rng, ("acs_update_tb", "chainback_tb", "acs_update_inplace",
@@ -404,7 +562,8 @@ def phase_decode(tag, rng):
                          "acs_update_large", "chainback_tb")),
     ]
     paths.append(drive_path(tag, "ICE", VITERBI224, soft8_spec(2), ICE_BYTES, [(B_ICE, None)],
-                            rng, ("acs_update_large2", "acs_update_large")))
+                            rng, ("acs_update_large4", "acs_update_large2", "acs_update_large")))
+    paths.append(drive_phase_fns(tag, rng))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
     zero = [name for name, n in launches.items() if n == 0]
     if zero:
@@ -426,7 +585,7 @@ def kernel_row(tag, rows, name, fn, ref, args, shape, bnd, iters, key=None, kwar
     return ms
 
 
-def decoder_phases(tag, code, numeric, B, n_bytes, rng, label):
+def decoder_phases(tag, code, numeric, B, n_bytes, rng, label, unit=("Msym/s", 1e6)):
     """Update and chainback phase times of one decoder (layout changes
     included): update as the median of five host-recorded CUDA event pairs
     after a warm-up, chainback as a CUDA-event mean."""
@@ -446,10 +605,10 @@ def decoder_phases(tag, code, numeric, B, n_bytes, rng, label):
         upd.append(start.elapsed_time(end))
     upd_ms = float(np.median(upd[1:]))
     cb_ms = timed_ms(lambda: dec.chainback(nbits), 5)
-    msym = B * T * code.R / (upd_ms * 1e-3) / 1e6
+    rate = B * T * code.R / (upd_ms * 1e-3) / unit[1]
     mbit = B * nbits / (cb_ms * 1e-3) / 1e6
-    print(f"[{tag}] decoder {label} B={B} update phase {upd_ms:.4f} ms = {msym:.1f} Msym/s; "
-          f"chainback phase {cb_ms:.4f} ms = {mbit:.1f} Mbit/s")
+    print(f"[{tag}] decoder {label} B={B} update phase {upd_ms:.4f} ms = {rate:.1f} {unit[0]}; "
+          f"chainback phase {cb_ms:.4f} ms = {mbit:.4g} Mbit/s")
 
 
 def phase_timing(tag, rng):
@@ -541,6 +700,69 @@ def phase_timing_large(tag, rng, rows):
     decoder_phases(tag, cas, soft8, B, CAS_BYTES, rng, "cassini (large-K pair)")
 
 
+def phase_timing_quad(tag, rng, rows):
+    """The three forms of the quad kernel at the ICE paths' shapes (B=8,
+    T=87), the pair kernel on the same steps beside them, and the phases of
+    the ICE decoder and of ``phase_fns``."""
+    ice, s8, B = VITERBI224, soft8_spec(2), B_ICE
+    _, sym = noisy_symbols(s8, B, rng, 3, ice, ICE_BYTES)
+    T = sym.shape[1]
+    m0 = metrics0(ice, s8, B, state_major=False)
+    shape = f"ice B={B} T={T}"
+    quad_traffic = 2 * B * ice.num_states * 4
+    for name, lead, bnd in (
+            ("acs_update_large4", None, acs_bound_ms(B, T, ice)),
+            ("acs_update_large4_fields", ICE_LEAD4, fields_bound_ms(B, T, ICE_LEAD4, ice)),
+            ("acs_update_large4_fields8", ICE_LEAD8, fields_bound_ms(B, T, ICE_LEAD8, ice))):
+        args = (ice, s8, m0, sym) if lead is None else (ice, s8, m0, sym, lead)
+        label = shape if lead is None else f"{shape} lead={lead}"
+        ms = kernel_row(tag, rows, name, getattr(large_k4, name), getattr(large_k4, name + "_ref"),
+                        args, label, bnd, 5)
+        torch.cuda.empty_cache()
+        # The quad launches alone: the same call without its remainder or lead steps.
+        nq = (T - (lead or 0)) // 4
+        if lead is None:
+            whole = sym[:, :4 * nq].contiguous()
+            quads_ms = timed_ms(lambda: large_k4.acs_update_large4(ice, s8, m0, whole), 5)
+        else:
+            rest = sym[:, lead:].contiguous()
+            quads_ms = timed_ms(lambda: getattr(large_k4, name)(ice, s8, m0, rest, 0), 5)
+        print(f"[{tag}] {name} {shape}: {nq} quad launches alone {quads_ms:.4f} ms = "
+              f"{1e3 * quads_ms / nq:.2f} us a launch; metric traffic of one read and one write a "
+              f"quad {quad_traffic / 1e6:.1f} MB = {quad_traffic / HBM_BYTES_PER_S * 1e6:.2f} us "
+              f"at {HBM_BYTES_PER_S / 1e12} TB/s; the whole call {ms:.4f} ms")
+    ms = timed_ms(lambda: large_k2.acs_update_large2(ice, s8, m0, sym), 5)
+    print(f"[{tag}] acs_update_large2 {shape} (the pair kernel on the same steps, not on the "
+          f"path): kernel {ms:.4f} ms = {1e3 * ms / (T // 2):.2f} us a pair, bound "
+          f"{acs_bound_ms(B, T, ice)[0]:.4f} ms")
+    del m0
+    torch.cuda.empty_cache()
+    decoder_phases(tag, ice, s8, B, ICE_BYTES, rng, "ICE (depth-4 words, portable walk)",
+                   ("ksym/s", 1e3))
+    torch.cuda.empty_cache()
+
+    nbits = ICE_BYTES * 8
+    init_fn, update_fn, chainback_fn, prepare_fn = dispatch.phase_fns(ice, s8, nbits, B)[:4]
+    prepared = prepare_fn(sym)
+    upd = []
+    for _ in range(6):
+        m = init_fn(B)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, table, _ = update_fn(m, prepared)
+        end.record()
+        end.synchronize()
+        upd.append(start.elapsed_time(end))
+    upd_ms = float(np.median(upd[1:]))
+    cb_ms = timed_ms(lambda: chainback_fn(table), 5)
+    print(f"[{tag}] phase_fns ICE B={B} (f8 route) update phase {upd_ms:.4f} ms = "
+          f"{B * T * ice.R / upd_ms:.1f} ksym/s; chainback phase {cb_ms:.4f} ms = "
+          f"{B * nbits / (cb_ms * 1e-3) / 1e6:.4g} Mbit/s")
+    del table
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -554,9 +776,11 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     errs = phase_kernels(tag, rng)
     phase_kernels_large(tag, rng, errs)
+    phase_kernels_quad(tag, rng, errs)
     launches = phase_decode(tag, rng)
     rows = phase_timing(tag, rng)
     phase_timing_large(tag, rng, rows)
+    phase_timing_quad(tag, rng, rows)
     print(f"[{tag}] chip_smoke: {time.perf_counter() - t0:.1f} s in all")
 
     line = {"kernels": [

@@ -23,7 +23,8 @@ import torch
 from .configs import CodeSpec, NumericSpec
 from .models.decoder import ViterbiDecoder
 
-__all__ = ["code_from_fields", "numeric_from_fields", "decoder_state_from_numpy"]
+__all__ = ["code_from_fields", "numeric_from_fields", "decoder_state_from_numpy",
+           "words_from_numpy", "tables_from_numpy"]
 
 
 def code_from_fields(name: str, K: int, R: int, polys) -> CodeSpec:
@@ -50,10 +51,23 @@ def decoder_state_from_numpy(decoder: ViterbiDecoder, metrics, words, renorm_off
             or words.shape[2] != decoder.code.decision_words:
         raise ValueError(f"words {words.shape} do not match [B={B}, steps={steps}, "
                          f"W={decoder.code.decision_words}]")
-    words = words.astype(np.uint32, copy=False).view(np.int32)
     dev = decoder.device
     decoder.metrics = torch.from_numpy(metrics.copy()).to(dev)
     decoder.renorm_offset = torch.from_numpy(renorm_offset.copy()).to(dev)
-    decoder._decision_blocks = [torch.from_numpy(words.copy()).to(dev)] if steps else []
+    decoder._decision_blocks = [words_from_numpy(words, dev)] if steps else []
     decoder._steps = int(steps)
     return decoder
+
+
+def words_from_numpy(words, device: torch.device | str = "cpu") -> torch.Tensor:
+    """uint32 (or int32) words of any shape -> the port's int32 tensor with
+    the same bits."""
+    words = np.ascontiguousarray(np.asarray(words)).astype(np.uint32, copy=False).view(np.int32)
+    return torch.from_numpy(words.copy()).to(device)
+
+
+def tables_from_numpy(tables: dict, device: torch.device | str = "cpu") -> dict:
+    """The walk tables of the JAX package's ``radix_planes`` or fields
+    kernels (``{"f4" | "f8" | "g2": uint32 array}``) as the port's tensors,
+    for ``ops.radix_planes.chainback_planes``."""
+    return {name: words_from_numpy(t, device) for name, t in tables.items()}

@@ -2,7 +2,8 @@
 // (sm_90a), bound to Python with ctypes through the plain extern "C"
 // launcher at the end of this file.
 //
-//   acs_large_pair_kernel  replaces ops/pallas/large_k2.py  acs_update_large2 (_pair_kernel)
+//   acs_large_pair_kernel  replaces ops/pallas/large_k2.py  acs_update_large2 (_pair_kernel),
+//                          its optional G_2 radix planes (want_g2) included
 //   acs_large_step_kernel  replaces ops/pallas/large_k.py   acs_update_large  (_step_kernel)
 //   frame_min_kernel, frame_sub_kernel: the per-frame shift-to-zero
 //     renormalisation (block entry and in-scan), which the JAX package does
@@ -37,6 +38,9 @@
 //
 // Decision words: one __ballot_sync per candidate over 32 consecutive p,
 // then bit spreading, gives each word in the canonical packing directly.
+// The G_2 plane of a pair (ops/radix_planes.py) is the step-t decision at the
+// predecessor the step-t+1 survivor came from, d1[d2][b1] in the thread's own
+// registers, packed like the step-t+1 words.
 //
 // What bounds them on the card: at Cassini (K=15, R=6) B=64 the operations
 // (a 2^R-entry penalty table a step, then 6 int32 operations per state and
@@ -48,29 +52,9 @@
 // Tie rule: a decision is c_hi < c_lo, strict; ties keep the low predecessor
 // (ops/pallas/large_k2.py:256, ka9q viterbi27_sse2.cpp:155-156).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <limits.h>
+#include "viterbi_large.cuh"
 
 namespace {
-
-constexpr int kMaxR = 8;
-constexpr int kThreads = 256;
-
-struct Code {
-  int mask[kMaxR];  // poly_r >> 1: parity of a predecessor index
-  int km[4];        // bit r of km[h*2 + b]: (b & poly_r) ^ (h & poly_r >> (K-1)) ^ inv_r
-  int par_q;        // parities of S/4 (pair kernel: p -> p + S/4)
-  int par_1;        // parities of 1 (2p -> 2p + 1)
-};
-
-__device__ __forceinline__ int parities(int s, const Code& c, int R) {
-  int v = 0;
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r)
-    if (r < R) v |= (__popc(s & c.mask[r]) & 1) << r;
-  return v;
-}
 
 // Bit i of x (i < 16) to bit 2i.
 __device__ __forceinline__ unsigned spread2(unsigned x) {
@@ -91,41 +75,13 @@ __device__ __forceinline__ unsigned spread4(unsigned x) {
   return x;
 }
 
-// Penalty table of one step of frame b: q[x] = sum_r (sym_r - low) +
-// sum_{r: bit r of x} (high + low - 2 sym_r), for x < 2^R.
-template <int R>
-__device__ __forceinline__ void build_table(int* q, const int* __restrict__ sym, int low, int hl,
-                                            int tid, int nthreads) {
-  int y[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) y[r] = sym[r];
-  for (int x = tid; x < (1 << R); x += nthreads) {
-    int v = 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) v += (y[r] - low) + (((x >> r) & 1) ? hl - 2 * y[r] : 0);
-    q[x] = v;
-  }
-}
-
-// One butterfly: predecessors lo (h=0) and hi (h=1) with parities pb; the
-// candidates for input bit b go to out[b], their decisions to d[b].
-__device__ __forceinline__ void butterfly(int lo, int hi, int pb, const int* q, const Code& c,
-                                          int* out, bool* d) {
-#pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    const int c_lo = lo + q[pb ^ c.km[b]];
-    const int c_hi = hi + q[pb ^ c.km[2 + b]];
-    d[b] = c_hi < c_lo;
-    out[b] = d[b] ? c_hi : c_lo;
-  }
-}
-
 template <int R>
 __global__ void __launch_bounds__(kThreads)
 acs_large_pair_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
                       const int* __restrict__ sym, int* __restrict__ words,
-                      const int* __restrict__ sub, int* __restrict__ off, Code c, int K,
-                      int low, int hl, int T_sym, int t, long long wsb, long long wst) {
+                      int* __restrict__ g2, const int* __restrict__ sub, int* __restrict__ off,
+                      Code c, int K, int low, int hl, int T_sym, int t, long long wsb,
+                      long long wst, long long gsb) {
   __shared__ int q[2][1 << R];
   const int S = 1 << (K - 1), S4 = S >> 2, W = S >> 5;
   const int b = blockIdx.y;
@@ -179,6 +135,19 @@ acs_large_pair_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
     for (int k = 0; k < 4; ++k) word |= spread4(v2[k] >> (8 * j)) << k;
     wt[wst + 4 * w + j] = (int)word;
   }
+  if (g2 != nullptr) {  // uniform over the grid
+    unsigned vg[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      vg[k] = __ballot_sync(0xffffffffu, d2[k] ? d1[1][k >> 1] : d1[0][k >> 1]);
+    if (lane >= 8 && lane < 12) {
+      const int j = lane - 8;
+      unsigned word = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) word |= spread4(vg[k] >> (8 * j)) << k;
+      g2[(size_t)b * gsb + 4 * w + j] = (int)word;
+    }
+  }
 }
 
 template <int R>
@@ -213,64 +182,6 @@ acs_large_step_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
   }
 }
 
-// mn[b] = min(mn[b], min over the frame's S metrics); mn starts at INT_MAX.
-__global__ void __launch_bounds__(kThreads)
-frame_min_kernel(const int* __restrict__ m, int S, int* __restrict__ mn) {
-  __shared__ int part[kThreads / 32];
-  const int b = blockIdx.y;
-  const int* f = m + (size_t)b * S;
-  int v = INT_MAX;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < S; i += gridDim.x * blockDim.x)
-    v = min(v, f[i]);
-  v = __reduce_min_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    v = threadIdx.x < (blockDim.x >> 5) ? part[threadIdx.x] : INT_MAX;
-    v = __reduce_min_sync(0xffffffffu, v);
-    if (threadIdx.x == 0) atomicMin(mn + b, v);
-  }
-}
-
-// m[b, :] -= sub[b]; off[b] += sub[b].
-__global__ void __launch_bounds__(kThreads)
-frame_sub_kernel(int* __restrict__ m, int S, const int* __restrict__ sub, int* __restrict__ off) {
-  const int b = blockIdx.y;
-  const int sh = sub[b];
-  if (blockIdx.x == 0 && threadIdx.x == 0) off[b] += sh;
-  int* f = m + (size_t)b * S;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < S; i += gridDim.x * blockDim.x)
-    f[i] -= sh;
-}
-
-dim3 reduce_grid(int S, int B) {
-  const int per = kThreads * 8;
-  int n = (S + per - 1) / per;
-  return dim3(n < 1024 ? n : 1024, B);
-}
-
-cudaError_t frame_min(const int* m, int S, int B, int* mn, cudaStream_t s) {
-  frame_min_kernel<<<reduce_grid(S, B), kThreads, 0, s>>>(m, S, mn);
-  return cudaGetLastError();
-}
-
-Code make_code(const int* polys, int K, int R, int inv) {
-  Code c = {};
-  for (int r = 0; r < R; ++r) {
-    const int p = polys[r];
-    c.mask[r] = p >> 1;
-    for (int h = 0; h < 2; ++h)
-      for (int b = 0; b < 2; ++b) {
-        const int k = (b & p & 1) ^ (h & (p >> (K - 1)) & 1) ^ ((inv >> r) & 1);
-        c.km[h * 2 + b] |= k << r;
-      }
-    const int S4 = 1 << (K - 3);
-    c.par_q |= (__builtin_popcount(S4 & c.mask[r]) & 1) << r;
-    c.par_1 |= (c.mask[r] & 1) << r;
-  }
-  return c;
-}
-
 // The launch loop shared by both kernels: `steps` trellis steps per launch
 // (2: pair kernel, 1: step kernel), `nl` launches from step t0.  Launch j
 // reads the metrics launch j-1 wrote (m_in for j = 0) and writes m_out or
@@ -280,9 +191,9 @@ Code make_code(const int* polys, int K, int R, int inv) {
 // pre-filled with INT_MAX) and subtracted by the next launch as it reads.
 template <int R>
 cudaError_t run_large(int steps, const int* m_in, const int* sym, const Code& c, int* m_out,
-                      int* m_tmp, int* words, int* off, int* mins, int nmins, int K, int low,
-                      int hl, int B, int T_sym, int t0, int nl, int rn, long long wsb,
-                      long long wst, cudaStream_t s) {
+                      int* m_tmp, int* words, int* g2, int* off, int* mins, int nmins, int K,
+                      int low, int hl, int B, int T_sym, int t0, int nl, int rn, long long wsb,
+                      long long wst, long long gsb, long long gst, cudaStream_t s) {
   const int S = 1 << (K - 1);
   const int per = S / (steps == 2 ? 4 : 2);  // threads per frame
   const int threads = per < kThreads ? per : kThreads;
@@ -297,8 +208,9 @@ cudaError_t run_large(int steps, const int* m_in, const int* sym, const Code& c,
     dst = ((nl - 1 - j) % 2 == 0) ? m_out : m_tmp;
     const int t = t0 + steps * j;
     if (steps == 2)
-      acs_large_pair_kernel<R><<<grid, threads, 0, s>>>(src, dst, sym, words, sub, off, c, K,
-                                                        low, hl, T_sym, t, wsb, wst);
+      acs_large_pair_kernel<R><<<grid, threads, 0, s>>>(
+          src, dst, sym, words, g2 ? g2 + (size_t)j * gst : nullptr, sub, off, c, K, low, hl,
+          T_sym, t, wsb, wst, gsb);
     else
       acs_large_step_kernel<R><<<grid, threads, 0, s>>>(src, dst, sym, words, sub, off, c, K,
                                                         low, hl, T_sym, t, wsb, wst);
@@ -331,24 +243,28 @@ extern "C" {
 // hl = high + low.  mins: [nmins, B] int32 on the device, every entry
 // INT_MAX, one row for the entry shift and one for each renormalisation
 // (every rn launches; rn = 0 for none).  Words of step t of frame b start at
-// words + b * wsb + t * wst.  Returns the first CUDA error, or 0.
+// words + b * wsb + t * wst.  g2 (pair kernel only; null for none): the G_2
+// plane of launch j of frame b starts at g2 + b * gsb + j * gst.  Returns the
+// first CUDA error, or 0.
 int viterbi_acs_large(int steps, const void* m_in, const void* sym, const int* polys,
-                      void* m_out, void* m_tmp, void* words, void* off, void* mins, int nmins,
-                      int K, int R, int inv, int low, int hl, int B, int T_sym, int t0, int nl,
-                      int rn, long long wsb, long long wst, void* stream) {
+                      void* m_out, void* m_tmp, void* words, void* g2, void* off, void* mins,
+                      int nmins, int K, int R, int inv, int low, int hl, int B, int T_sym, int t0,
+                      int nl, int rn, long long wsb, long long wst, long long gsb, long long gst,
+                      void* stream) {
   const int kmin = steps == 2 ? 8 : 7;  // a full warp of threads per frame
   if ((steps != 1 && steps != 2) || K < kmin || K > 24 || B < 1 || B > 65535 || nl < 1 ||
-      nmins < 1 || rn < 0 || t0 < 0 || t0 + steps * nl > T_sym)
+      nmins < 1 || rn < 0 || t0 < 0 || t0 + steps * nl > T_sym || (g2 != nullptr && steps != 2))
     return (int)cudaErrorInvalidValue;
   const Code c = make_code(polys, K, R, inv);
   const int* mi = (const int*)m_in;
   const int* sy = (const int*)sym;
-  int *mo = (int*)m_out, *mt = (int*)m_tmp, *w = (int*)words, *of = (int*)off, *mn = (int*)mins;
+  int *mo = (int*)m_out, *mt = (int*)m_tmp, *w = (int*)words, *g = (int*)g2, *of = (int*)off,
+      *mn = (int*)mins;
   const cudaStream_t s = (cudaStream_t)stream;
 #define LARGE_CASE(RR)                                                                       \
   case RR:                                                                                   \
-    return (int)run_large<RR>(steps, mi, sy, c, mo, mt, w, of, mn, nmins, K, low, hl, B,    \
-                              T_sym, t0, nl, rn, wsb, wst, s);
+    return (int)run_large<RR>(steps, mi, sy, c, mo, mt, w, g, of, mn, nmins, K, low, hl, B, \
+                              T_sym, t0, nl, rn, wsb, wst, gsb, gst, s);
   switch (R) {
     LARGE_CASE(1) LARGE_CASE(2) LARGE_CASE(3) LARGE_CASE(4)
     LARGE_CASE(5) LARGE_CASE(6) LARGE_CASE(7) LARGE_CASE(8)

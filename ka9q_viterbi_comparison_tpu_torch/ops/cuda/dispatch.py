@@ -2,8 +2,9 @@
 
 Port of ``ka9q_viterbi_comparison_tpu/ops/pallas/dispatch.py`` (``acs_update``,
 ``_large_update``, ``chainback``, ``use_inplace``, ``supports_chainback``,
-``unpack_bit_words``).  It bridges the batch-major public API (``[B, ...]``
-tensors, the layout of the portable path) to the kernels' layouts.
+``unpack_bit_words``, and the large-K half of ``phase_fns``).  It bridges
+the batch-major public API (``[B, ...]`` tensors, the layout of the portable
+path) to the kernels' layouts.
 
 Routes, decided on the code and the batch B alone so that update and
 chainback agree:
@@ -15,15 +16,21 @@ chainback agree:
   package leaves the in-place kernel for a TPU compiler fault
   (``ops/pallas/dispatch.py:89``) and this port does not.
 * K <= 9 otherwise: the state-order pair (``kernels.py``).
-* K > 9 otherwise: the state-blocked large-K pair ``acs_update_large2``
-  (``large_k2.py``, its odd tail on ``large_k.py``), whose words are in
-  canonical order and walk through ``chainback_tb`` up to K=15 and through
-  the portable walk (``ops/chainback.py``) above, as in the JAX package.
-  The JAX package sends R <= 2 codes with a state block of at least 512
-  states (K=12..24 at r=1/2, ICE among them) to its depth-4 kernel
-  ``acs_update_large4`` instead, which the port does not have yet; there
-  the two packages agree in bytes and path metric, and the split between
-  ``metrics`` and the offset may differ.
+* K > 9 otherwise: the state-blocked large-K kernels.  R <= 2 codes with a
+  state block of at least 512 states (every such K >= 10, ICE among them)
+  take the depth-4 kernel ``acs_update_large4`` (``large_k4.py``, its 1-3
+  step remainder on ``large_k2.py``), the others the pair kernel
+  ``acs_update_large2`` (``large_k2.py``, its odd tail on ``large_k.py``).
+  The choice follows from the code alone, as the JAX package's default does.
+  Their words are in canonical order and walk through ``chainback_tb`` up
+  to K=15 and through the portable walk (``ops/chainback.py``) above, as in
+  the JAX package.
+
+``phase_fns`` gives the update and traceback of the large-K family as
+separate phases with no layout change between them.  Above K=15 its update
+returns a walk table in place of words (``f8`` for whole frames, else
+``f4``, written by the depth-4 kernel; else words and tables built from
+them) and its traceback retires 8 or 4 steps a fetch (``ops/radix_planes.py``).
 
 The batch is not padded: each CUDA block owns whole frames, so there is no
 lane width to fill (the JAX package pads to 128 lanes only on a TPU).  Time
@@ -38,11 +45,12 @@ import torch.nn.functional as F
 
 from ...configs import CodeSpec, NumericSpec
 from ...utils.bits import bits_to_bytes, unpack_words_to_bits
-from .. import chainback as cb
-from . import flags, inplace, kernels, large_k2
+from .. import acs, chainback as cb, radix_planes as rp
+from . import flags, inplace, kernels, large_k2, large_k4
 
-__all__ = ["acs_update", "chainback", "use_inplace", "supports", "supports_chainback",
-           "fits_shared", "unpack_bit_words"]
+__all__ = ["acs_update", "chainback", "phase_fns", "use_inplace", "supports",
+           "supports_chainback", "fits_shared", "unpack_bit_words"]
+
 
 def fits_shared(code: CodeSpec, device: torch.device) -> bool:
     """Whether one in-place ACS block's shared memory fits the card of
@@ -108,10 +116,13 @@ def _inplace_update(code, numeric, metrics, symbols, t0):
 
 
 def _large_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
-                  symbols: torch.Tensor):
-    """State-blocked large-K update: the pair kernel, two steps a launch."""
-    return large_k2.acs_update_large2(code, numeric, metrics.to(torch.int32).contiguous(),
-                                      symbols.to(torch.int32).contiguous())
+                  symbols: torch.Tensor, time_major: bool = False):
+    """State-blocked large-K update at the depth the code admits: four steps
+    a launch (``large_k4``) for R <= 2 trellises of at least 512 states, else
+    the pair kernel (``large_k2``)."""
+    fn = large_k4.acs_update_large4 if large_k4.supports(code) else large_k2.acs_update_large2
+    return fn(code, numeric, metrics.to(torch.int32).contiguous(),
+              symbols.to(torch.int32).contiguous(), time_major=time_major)
 
 
 def acs_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
@@ -156,3 +167,94 @@ def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,
     walk = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
     bits = unpack_bit_words(walk(code, w, end, T), T)
     return bits_to_bytes(bits[:, code.K - 1 : code.K - 1 + num_data_bits])
+
+
+def phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
+              batch: int | None = None, device: torch.device | str = "cuda"):
+    """The decoder's lifecycle as separate phases in the kernels' own layout,
+    with no layout change between update and traceback: the configuration a
+    benchmark times.  Serves the large-K family (K > 9 below the in-place
+    batch).
+
+    Returns ``(init_fn, update_fn, chainback_fn, prepare_fn, None, None)``:
+    ``init_fn(batch)`` gives reset metrics ``[B, S]``; ``prepare_fn(symbols
+    [B, T, R])`` stages the symbols on ``device`` outside the timed phases;
+    ``update_fn(metrics, prepared)`` returns ``(metrics, words, offset)``;
+    ``chainback_fn(words)`` returns the bytes ``[B, num_data_bits // 8]``.
+    The last two places are the JAX package's ``make_*_chain`` factories,
+    timing devices for its compiler, which wait for the benchmark harness.
+
+    What ``words`` is follows the JAX package's defaults.  Up to K=15: the
+    batch-major words of ``_large_update``, walked by ``chainback``.  Above:
+    ``{"f8": table}`` from ``acs_update_large4_fields8`` for a whole frame
+    (``T == num_data_bits + K - 1``), anchored at the largest step ``<= K-1``
+    that leaves whole 8-step windows; else ``{"f4": table}`` from
+    ``acs_update_large4_fields`` when ``T - (K-1)`` is a multiple of 4; else
+    time-major words and the tables ``radix_planes.build_plane_tables`` makes
+    of them.  The fields forms need the depth-4 kernel (R <= 2).
+
+    ``batch``: the batch the caller will run (the family depends on it);
+    defaults to the in-place route's threshold."""
+    from ...models.decoder import as_symbols, resolve_device
+
+    device = resolve_device(device)
+    if use_inplace(code, batch if batch else 128, device) or supports(code):
+        raise NotImplementedError(
+            f"phase_fns serves the large-K family; {code.name} at batch {batch} is of the "
+            f"{'in-place' if not supports(code) else 'K <= 9'} family, whose phases come with the "
+            "benchmark harness (ROADMAP.md, queue 1 item 6)")
+    use_planes = not supports_chainback(code) and code.K - 1 >= rp.MIN_N
+    # Anchor at the first kept data bit: the walk skips the discarded
+    # initial-state steps.
+    anchor = code.K - 1 if use_planes else 0
+    lk4_ok = large_k4.supports(code)
+    lead = anchor % 4
+
+    def _use_fields(T: int) -> bool:
+        return use_planes and lk4_ok and T > anchor and (T - anchor) % 4 == 0
+
+    def _anchor8(T: int) -> int:
+        # largest walk anchor <= K-1 with (T - anchor) % 8 == 0
+        a = code.K - 1
+        return a - ((a - T % 8) % 8)
+
+    def _use_fields8(T: int) -> bool:
+        # The traceback derives the anchor again, from num_data_bits, so the
+        # route holds only for whole frames, where the two agree.
+        return (use_planes and lk4_ok and 0 <= _anchor8(T) < T
+                and T == num_data_bits + code.K - 1)
+
+    def init_fn(batch):
+        return acs.init_metrics(code, numeric, batch, device=device)
+
+    def prepare_fn(symbols):
+        return as_symbols(symbols, device).contiguous()
+
+    def update_fn(metrics, symbols):
+        T = symbols.shape[1]
+        if _use_fields8(T):
+            a8 = _anchor8(T)
+            m, f8, off = large_k4.acs_update_large4_fields8(code, numeric, metrics, symbols,
+                                                            a8 % 8)
+            return m, {"f8": f8[(a8 - a8 % 8) // 8:]}, off
+        if _use_fields(T):
+            m, f4, off = large_k4.acs_update_large4_fields(code, numeric, metrics, symbols, lead)
+            return m, {"f4": f4[(anchor - lead) // 4:]}, off
+        if use_planes:
+            m, w_tm, off = _large_update(code, numeric, metrics, symbols, time_major=True)
+            return m, (w_tm, rp.build_plane_tables(code, w_tm, anchor)), off
+        return _large_update(code, numeric, metrics, symbols)
+
+    def _cb_impl(words, endstate):
+        if not use_planes:
+            return chainback(code, words, num_data_bits, endstate)
+        if isinstance(words, dict):  # tables written by the kernel
+            cb_anchor = _anchor8(num_data_bits + code.K - 1) if "f8" in words else anchor
+            return rp.chainback_planes(code, None, words, num_data_bits, endstate, cb_anchor)
+        w_tm, tabs = words
+        return rp.chainback_planes(code, w_tm, tabs, num_data_bits, endstate, anchor)
+
+    def chainback_fn(words):
+        return _cb_impl(words, 0)
+
+    return init_fn, update_fn, chainback_fn, prepare_fn, None, None

@@ -82,29 +82,48 @@ def acs_update_large_ref(code: CodeSpec, numeric: NumericSpec, metrics: torch.Te
 def launch_large(counter: str, steps: int, code: CodeSpec, numeric: NumericSpec,
                  metrics: torch.Tensor, symbols: torch.Tensor, words: torch.Tensor,
                  offset: torch.Tensor, word_strides: tuple[int, int], t0: int, nl: int,
-                 rn: int = 0) -> torch.Tensor:
+                 rn: int = 0, g2: torch.Tensor | None = None,
+                 g2_strides: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Check and call the launcher of ``csrc/viterbi_large.cu``: ``nl``
     launches of the pair (``steps=2``) or step (``steps=1``) kernel from step
     ``t0`` of ``symbols``, renormalising every ``rn`` launches.  Returns the
-    final metrics ``[B, S]`` int32; ``words`` and ``offset`` are filled in
-    place (the offset accumulates)."""
+    final metrics ``[B, S]`` int32; ``words`` and ``offset`` (and ``g2``, the
+    pair kernel's optional G_2 planes) are filled in place (the offset
+    accumulates)."""
+    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, nl, rn)
+    _build.launch(counter, "viterbi_acs_large", metrics.device, steps, *scratch[:5],
+                  words.data_ptr(), g2.data_ptr() if g2 is not None else None, *scratch[5:],
+                  *code_args(code, numeric), *symbols.shape[:2], t0, nl, rn, *word_strides,
+                  *g2_strides)
+    return m_out
+
+
+def launch_args(code: CodeSpec, metrics: torch.Tensor, symbols: torch.Tensor,
+                offset: torch.Tensor, nl: int, rn: int):
+    """What the launchers of the state-blocked kernels share: the checks, the
+    output and ping-pong metric buffers, and the ``[rows, B]`` buffer of
+    pending shifts (the entry shift and one row per renormalisation, every
+    ``rn`` of ``nl`` launches).  Returns ``(m_out, (m_in, symbols, polys,
+    m_out, m_tmp | offset, mins, rows), scratch tensors)``: the pointers as
+    the launchers take them, and the tensors the caller keeps until it has
+    launched."""
     B, T, R = symbols.shape
     _build.check_cuda_int32("metrics", metrics, (B, code.num_states))
     _build.check_cuda_int32("symbols", symbols, (B, T, R))
     _build.check_cuda_int32("offset", offset, (B,))
-    dev = metrics.device
     m_out = torch.empty_like(metrics)
     m_tmp = torch.empty_like(metrics)
-    nmins = 1 + (nl // rn if rn else 0)  # the entry shift and each renormalisation
-    mins = torch.full((nmins, B), INT32_MAX, dtype=torch.int32, device=dev)
+    nmins = 1 + (nl // rn if rn else 0)
+    mins = torch.full((nmins, B), INT32_MAX, dtype=torch.int32, device=metrics.device)
     polys = (ctypes.c_int * R)(*code.abs_polys())
+    return m_out, (metrics.data_ptr(), symbols.data_ptr(), polys, m_out.data_ptr(),
+                   m_tmp.data_ptr(), offset.data_ptr(), mins.data_ptr(), nmins), (m_tmp, mins)
+
+
+def code_args(code: CodeSpec, numeric: NumericSpec) -> tuple[int, int, int, int, int]:
+    """``(K, R, inv, low, high + low)`` of the launchers' signatures."""
     inv = sum(1 << r for r, i in enumerate(code.inversions()) if i)
-    _build.launch(counter, "viterbi_acs_large", dev, steps, metrics.data_ptr(),
-                  symbols.data_ptr(), polys, m_out.data_ptr(), m_tmp.data_ptr(),
-                  words.data_ptr(), offset.data_ptr(), mins.data_ptr(), nmins, code.K, R, inv,
-                  numeric.soft_low, numeric.soft_high + numeric.soft_low, B, T, t0, nl, rn,
-                  *word_strides)
-    return m_out
+    return code.K, code.R, inv, numeric.soft_low, numeric.soft_high + numeric.soft_low
 
 
 def acs_update_large(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,

@@ -1,8 +1,9 @@
 """Cassini (K=15, r=1/6) through the port's decoder against the JAX
 package's, on the CPU: backend ``cuda`` with ``device="cpu"`` (the kernels'
 plain versions) vs JAX ``pallas`` (interpret mode), which routes B < 128 to
-``large_k2``.  Also the large-K routing table, a JAX half-stream resumed in
-the port, and the one deliberate route divergence (K=15 at B > 256)."""
+``large_k2``.  Also the large-K routing table (depth 4 for R <= 2, the pair
+kernel else), a JAX half-stream resumed in the port, and the one deliberate
+route divergence (K=15 at B > 256)."""
 
 import dataclasses
 
@@ -14,13 +15,13 @@ import torch
 import ka9q_viterbi_comparison_tpu as J
 import ka9q_viterbi_comparison_tpu_torch as P
 from ka9q_viterbi_comparison_tpu.ops.encoder import encode_frames
-from ka9q_viterbi_comparison_tpu.ops.pallas import dispatch as jdispatch, large_k2 as jlk2
+from ka9q_viterbi_comparison_tpu.ops.pallas import dispatch as jdispatch, large_k4 as jlk4
 from ka9q_viterbi_comparison_tpu_torch.convert import (
     code_from_fields,
     decoder_state_from_numpy,
     numeric_from_fields,
 )
-from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, large_k2
+from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, large_k2, large_k4
 
 JC = J.VITERBI615
 
@@ -116,32 +117,32 @@ K12 = J.CodeSpec("k12r2", 12, 2, (0o6731, 0o5247))
 
 
 def test_large_k_routing_table(monkeypatch):
-    """K=12 R=2 takes the pair kernel.  The JAX package takes its pair kernel
-    too at ``KA9Q_TPU_LK_DEPTH=2``, with the same words, metrics and bytes;
-    at its default depth it takes ``acs_update_large4`` (not ported yet),
-    and the bytes and path metric still agree."""
+    """K=12 R=2 takes the depth-4 kernel ``acs_update_large4`` in both
+    packages at their defaults (the JAX package with no
+    ``KA9Q_TPU_LK_DEPTH``; the port has no such setting): words, metrics,
+    offset, path metric and bytes are bit-equal.  Cassini (R=6 > 2) is on
+    the pair kernel in both."""
+    monkeypatch.delenv("KA9Q_TPU_LK_DEPTH", raising=False)
     jn = J.soft8_spec(2)
     _, sym = frames(K12, jn, 2, 4, 3, seed=18)
     T = sym.shape[1]
-    jdec4, pdec4 = run_both(K12, jn, sym, [(0, T)])
-    np.testing.assert_array_equal(pdec4.chainback(32).numpy(), np.asarray(jdec4.chainback(32)))
-    for end in (0, 77):
-        np.testing.assert_array_equal(pdec4.path_metric(end).numpy(),
-                                      np.asarray(jdec4.path_metric(end)))
-    monkeypatch.setenv("KA9Q_TPU_LK_DEPTH", "2")
+    assert T % 4 == 3  # ten quads, then a pair and a step on the depth-2 and depth-1 kernels
     calls = []
-    for mod in (large_k2, jlk2):
-        real = mod.acs_update_large2
-        monkeypatch.setattr(mod, "acs_update_large2",
+    for mod in (large_k4, jlk4):
+        real = mod.acs_update_large4
+        monkeypatch.setattr(mod, "acs_update_large4",
                             lambda *a, mod=mod, real=real, **k: calls.append(mod) or real(*a, **k))
     jdec, pdec = run_both(K12, jn, sym, [(0, T)])
-    assert calls == [jlk2, large_k2]
+    assert calls == [jlk4, large_k4]
     assert_same_state(jdec, pdec, 32)
-    # Cassini (R=6 > 2) is on the pair kernel in both packages at any depth.
-    monkeypatch.delenv("KA9Q_TPU_LK_DEPTH")
     pc, pn = ported(JC, J.soft8_spec(6))
+    calls.clear()
+    real2 = large_k2.acs_update_large2
+    monkeypatch.setattr(large_k2, "acs_update_large2",
+                        lambda *a, **k: calls.append(large_k2) or real2(*a, **k))
     assert dispatch._large_update(pc, pn, torch.zeros((1, JC.num_states), dtype=torch.int32),
                                   torch.zeros((1, 2, 6), dtype=torch.int32))[1].shape == (1, 2, 512)
+    assert calls == [large_k2]
 
 
 def test_k15_above_256_keeps_inplace_route():

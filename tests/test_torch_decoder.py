@@ -17,7 +17,7 @@ from ka9q_viterbi_comparison_tpu_torch.convert import (
     decoder_state_from_numpy,
     numeric_from_fields,
 )
-from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, flags, large_k2
+from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, flags, large_k2, large_k4
 from ka9q_viterbi_comparison_tpu_torch.utils.bits import count_bit_errors
 
 ROUTES = [pytest.param("1", id="inplace"), pytest.param("0", id="state_order")]
@@ -157,17 +157,21 @@ def test_functional_matches_jax():
 
 
 def test_large_k_routes_to_later_slice(monkeypatch):
-    """K=24 (ICE) takes the large-K pair kernel: the JAX package's depth-4
-    kernel, its route there, is a later slice of the port."""
+    """K=24 (ICE) takes the depth-4 kernel ``acs_update_large4``, as in the
+    JAX package; a block shorter than a quad runs wholly on its remainder,
+    an ``acs_update_large2`` block."""
     pc, pn = P.VITERBI224, P.soft8_spec(2)
     calls = []
-    real = large_k2.acs_update_large2
-    monkeypatch.setattr(large_k2, "acs_update_large2",
+    real = large_k4.acs_update_large4
+    monkeypatch.setattr(large_k4, "acs_update_large4",
                         lambda *a, **k: calls.append(a[3].shape) or real(*a, **k))
     dec = P.ViterbiDecoder(pc, pn, batch=1, backend="cuda", device="cpu")
     dec.update(torch.zeros((1, 2, 2), dtype=torch.int32))
     assert calls == [(1, 2, 2)]
     assert dec.metrics.shape == (1, pc.num_states)
+    want = large_k2.acs_update_large2(pc, pn, P.ViterbiDecoder(pc, pn, 1, "torch", "cpu").metrics,
+                                      torch.zeros((1, 2, 2), dtype=torch.int32))
+    assert torch.equal(dec.metrics, want[0]) and torch.equal(dec._decision_blocks[0], want[1])
     with pytest.raises(ValueError):
         P.ViterbiDecoder(pc, pn, batch=1, backend="pallas", device="cpu")
 
