@@ -3,11 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
-together), holds each of the nine kernels against its plain PyTorch version on
-the card, then drives four paths, the first three through
-``ViterbiDecoder(backend="cuda")`` and the fourth through
-``dispatch.phase_fns``, each with the launch counts zeroed just before it and
-read just after:
+together), holds each of the ten kernels against its plain PyTorch version on
+the card, then drives six paths -- through ``ViterbiDecoder(backend="cuda")``,
+``dispatch.phase_fns`` and the benchmark runner -- each with the launch counts
+zeroed just before it and read just after:
 
 * VITERBI27 (K=7, r=1/2) soft8, 1024-byte frames: B=512 (the in-place pair)
   and B=64 (the state-order pair);
@@ -20,7 +19,14 @@ read just after:
 * the same ICE frames through ``phase_fns``: the update that returns the
   byte-packed f8 walk table (the quad kernel in fields mode over ten quad
   pairs, after 7 lead steps on the pair and step kernels) and the
-  8-steps-a-fetch table walk; and, asked for 7 of the 8 bytes, the f4 route.
+  8-steps-a-fetch table walk; and, asked for 7 of the 8 bytes, the f4 route;
+* VITERBI27 soft8, 1024-byte frames at B=1024 with the in-place route off
+  (``KA9Q_TORCH_INPLACE=0`` for this path only): the depth-2 state-order
+  kernel ``acs_update_tb2`` and ``chainback_tb``, through the decoder and
+  through ``phase_fns`` with its chains of three links;
+* the benchmark runner (``harness.runner.run_matrix``, ``backends=["cuda"]``):
+  all six codes at its default batches and the reference's frame sizes,
+  every numeric spec, 16 rows of reference-schema JSON with bit error rate 0.
 
 Then it times the kernels and the decoders' phases with CUDA events.  Every
 number line carries the card's name and power limit.  The last three lines
@@ -33,6 +39,7 @@ port's package beside it.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -46,29 +53,36 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     CodeSpec,
+    STANDARD_CODES,
     VITERBI27,
+    VITERBI29,
+    VITERBI47,
+    VITERBI49,
     VITERBI224,
     VITERBI615,
     ViterbiDecoder,
     soft8_spec,
     soft16_spec,
 )
+from ka9q_viterbi_comparison_tpu_torch.harness import runner  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops import radix_planes  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
     dispatch,
     inplace,
     kernels,
+    kernels2,
     large_k,
     large_k2,
     large_k4,
 )
 from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_frames  # noqa: E402
-from ka9q_viterbi_comparison_tpu_torch.utils.bits import count_bit_errors  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.utils.bits import bits_to_bytes, count_bit_errors  # noqa: E402
 
 SEED = 20261016
 FRAME_BYTES = 1024          # K=7 frames
 B_INPLACE, B_TB = 512, 64   # K=7 batches
+B_TB2 = 1024                # the depth-2 kernel's batch (K <= 9, in-place route off)
 CAS_BYTES = 256             # Cassini frames (T = 2062 steps)
 B_CAS_INPLACE, B_CAS_LARGE = 256, 64
 ICE_BYTES, B_ICE = 8, 8     # ICE frames (T = 87 steps)
@@ -81,7 +95,8 @@ INT32_OPS_PER_S = 16.73e12
 CODE = VITERBI27
 
 SOURCE = {name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_small.cu" for name in
-          ("acs_update_tb", "chainback_tb", "acs_update_inplace", "chainback_inplace")}
+          ("acs_update_tb", "chainback_tb", "acs_update_inplace", "chainback_inplace",
+           "acs_update_tb2")}
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large.cu" for name in
                ("acs_update_large2", "acs_update_large")})
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large4.cu" for name in
@@ -91,6 +106,7 @@ REPLACES = {
     "chainback_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:361",
     "acs_update_inplace": "ka9q_viterbi_comparison_tpu/ops/pallas/inplace.py:468",
     "chainback_inplace": "ka9q_viterbi_comparison_tpu/ops/pallas/inplace.py:630",
+    "acs_update_tb2": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels2.py:184",
     "acs_update_large2": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k2.py:340",
     "acs_update_large": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k.py:167",
     "acs_update_large4": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:358",
@@ -98,6 +114,11 @@ REPLACES = {
     "acs_update_large4_fields8": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:669",
 }
 ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
+# The reference's per-test JSON schema (ref: print_test, src/main.cpp:80-118).
+SCHEMA_KEYS = {
+    "name", "K", "R", "poly", "total_input_bytes", "total_transmit_bits",
+    "total_output_symbols", "sampling_time", "minimum_samples", "total_samples", "init_ns",
+    "update_ns", "chainback_ns", "total_bits", "total_bit_errors", "bit_error_rate"}
 
 
 def card_tag() -> str:
@@ -441,6 +462,175 @@ def phase_kernels_quad(tag, rng, errs):
           f"all bit-identical")
 
 
+class inplace_off:
+    """``KA9Q_TORCH_INPLACE=0`` inside the block, the earlier value after."""
+
+    def __enter__(self):
+        self.saved = os.environ.get("KA9Q_TORCH_INPLACE")
+        os.environ["KA9Q_TORCH_INPLACE"] = "0"
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            del os.environ["KA9Q_TORCH_INPLACE"]
+        else:
+            os.environ["KA9Q_TORCH_INPLACE"] = self.saved
+
+
+def native_walk(code, words_native, nbits, endstate: int):
+    """One ``chainback_tb`` walk over native-layout words from a host-side end
+    state: bytes ``[B, nbits // 8]``."""
+    dec, T, B = words_native
+    end = torch.full((1, B), endstate & (code.num_states - 1), dtype=torch.int32, device="cuda")
+    bits = dispatch.unpack_bit_words(kernels.chainback_tb(code, dec, end, T), T)
+    return bits_to_bytes(bits[:, code.K - 1:code.K - 1 + nbits])
+
+
+def phase_kernels_tb2(tag, rng, errs):
+    """The depth-2 state-order kernel against its plain version and against
+    the ``acs_update_tb`` kernel on the same inputs (metrics and words
+    [:t_real] identical): the tb2 path's own shape, an odd ``t_real``, one
+    that ends inside a 32-step stage of symbols, K=9 soft16, both R=4 codes,
+    and a K=5 code at a small batch."""
+    def one(code, numeric, B, n_bytes, noise, t_cuts=(0,)):
+        _, sym = noisy_symbols(numeric, B, rng, noise, code, n_bytes)
+        s = trb(sym)
+        T = s.shape[0]
+        m0 = metrics0(code, numeric, B) + torch.randint(0, 40, (code.num_states, B),
+                                                        dtype=torch.int32, device="cuda")
+        for cut in t_cuts:
+            t = T - cut
+            label = f"acs_update_tb2 {code.name} {numeric.name} B={B} T={T} t_real={t}"
+            e, (m_k, d_k) = compare_update(label, kernels2.acs_update_tb2,
+                                           kernels2.acs_update_tb2_ref,
+                                           (code, numeric, m0, s, t), t)
+            m_t, d_t = kernels.acs_update_tb(code, numeric, m0, s, t)
+            torch.cuda.synchronize()
+            e = max(e, check(label + " vs the acs_update_tb kernel",
+                             max(max_abs_err(m_k, m_t), max_abs_err(d_k[:t], d_t[:t]))))
+            errs["acs_update_tb2"] = max(errs["acs_update_tb2"], e)
+
+    # T = 8198: 8197 is odd (one step A alone); 8185 ends 25 steps into a stage.
+    one(CODE, soft8_spec(2), B_TB2, FRAME_BYTES, 4, (0, 1, 13))
+    one(VITERBI29, soft16_spec(2), B_TB2, 512, 160)
+    one(VITERBI47, soft8_spec(4), B_TB2, 1024, 4)
+    one(VITERBI49, soft8_spec(4), B_TB2, 512, 4, (0, 1))
+    one(CodeSpec("k5r2", 5, 2, (0o23, 0o35)), soft8_spec(2), 33, 8, 3, (0, 1))
+    torch.cuda.empty_cache()
+    print(f"[{tag}] acs_update_tb2 vs its plain version and vs the acs_update_tb kernel: "
+          f"all bit-identical")
+
+
+def drive_tb2_path(tag, rng):
+    """Path 5, the depth-2 route: K=7 soft8 1024-byte frames at B=1024 with
+    the in-place route off for this path only.  First through the decoder
+    (``drive_path``: one ``acs_update_tb2`` and one ``chainback_tb`` a decode,
+    no other ACS kernel), then the same shapes through ``phase_fns`` (the four
+    phases, and chains of three links against three separate calls)."""
+    code, numeric, B, nbits = CODE, soft8_spec(2), B_TB2, FRAME_BYTES * 8
+    with inplace_off():
+        dec_launches = drive_path(tag, "K=7 depth-2", code, numeric, FRAME_BYTES, [(B, None)], rng,
+                                  ("acs_update_tb2", "chainback_tb"))
+        want = {"acs_update_tb2": 2, "chainback_tb": 2}  # a noiseless and a noisy decode
+        if {k: v for k, v in dec_launches.items() if v} != want:
+            raise SystemExit(f"FAIL: the depth-2 decoder path launched {dec_launches}, not {want}")
+
+        data, clean = noisy_symbols(numeric, B, rng, 0)
+        noisy_data, noisy = noisy_symbols(numeric, B, rng, 4)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        init_fn, update_fn, chainback_fn, prepare_fn, make_cb_chain, make_up_chain = \
+            dispatch.phase_fns(code, numeric, nbits, B)
+        m, words, off = update_fn(init_fn(B), prepare_fn(clean))
+        decoded = chainback_fn(words)
+        prepared = prepare_fn(noisy)
+        mn, words_n, _ = update_fn(init_fn(B), prepared)
+        dec_noisy = chainback_fn(words_n)
+        # Chains of three links against three separate calls.
+        m3, (d3, _, _) = make_up_chain(3)(init_fn(B), prepared)
+        ms = init_fn(B)
+        for _ in range(3):
+            ms, ws, _ = update_fn(ms, prepared)
+        out3 = make_cb_chain(3)(words_n)
+        # ... and three separate walks whose end state crosses the host.
+        outs = native_walk(code, words_n, nbits, 0)
+        for _ in range(2):
+            outs = native_walk(code, words_n, nbits, int(outs[0, -1]))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    print(f"[{tag}] K=7 depth-2 phase_fns path launches: {json.dumps(launches)}")
+    others = [k for k, v in launches.items() if v and k not in ("acs_update_tb2", "chainback_tb")]
+    if others or not launches["acs_update_tb2"] or not launches["chainback_tb"]:
+        raise SystemExit(f"FAIL: the depth-2 phase_fns path launched {launches}")
+    errors = count_bit_errors(decoded, data)
+    pm_ok = bool((m[0] + off == 0).all())
+    ref = ViterbiDecoder(code, numeric, B, "torch")
+    ref.update(noisy)
+    same = bool(torch.equal(dec_noisy, ref.chainback(nbits)))
+    m_same = bool(torch.equal(mn.T, ref.metrics))
+    del ref
+    T = words_n[1]
+    up_same = bool(torch.equal(m3, ms) and torch.equal(d3[:T], ws[0][:T]))
+    cb_same = bool(torch.equal(out3, outs))
+    print(f"[{tag}] decode K=7 depth-2 phase_fns B={B} {FRAME_BYTES}-byte frames: noiseless bit "
+          f"errors {errors}, path metric 0 on all frames {pm_ok}, noisy equal to backend=torch "
+          f"{same} (metrics {m_same}), noisy bit errors {count_bit_errors(dec_noisy, noisy_data)}; "
+          f"update chain of 3 equal to three calls {up_same}, chainback chain of 3 equal to three "
+          f"walks {cb_same}")
+    if errors or not (pm_ok and same and m_same and up_same and cb_same):
+        raise SystemExit("FAIL: end-to-end depth-2 phase_fns decode")
+    torch.cuda.empty_cache()
+    return {k: dec_launches[k] + launches[k] for k in launches}
+
+
+def drive_runner(tag):
+    """Path 6, the benchmark runner in-process on the card: the six codes at
+    its default batches and the reference's frame sizes, every numeric spec
+    (16 rows), ``backends=["cuda"]``, a short sampling time.  One call of
+    ``run_matrix`` per code, with the launch counts zeroed before it and read
+    after, shows which kernels served which code.  Every row must carry the
+    reference schema's keys and a bit error rate of 0."""
+    total = {name: 0 for name in _build.LAUNCHES}
+    rows = []
+    for code in STANDARD_CODES:
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        saved, sys.stderr = sys.stderr, io.StringIO()  # the runner's progress lines
+        try:
+            runner.run_matrix(0.15, 3, out, codes=(code,), seed=SEED, backends=["cuda"])
+        finally:
+            sys.stderr = saved
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in launches.items():
+            total[k] += v
+        print(f"[{tag}] runner {code.name} launches: {json.dumps(launches)}")
+        want = (("acs_update_large4_fields8",) if code.K > 15 else
+                ("acs_update_inplace", "chainback_inplace"))
+        if any(k not in launches for k in want) or (code.K <= 15 and len(launches) != 2):
+            raise SystemExit(f"FAIL: runner {code.name} was served by {launches}, expected {want}")
+        rows += json.loads(out.getvalue())
+        torch.cuda.empty_cache()
+    names = {(c.K, c.R): c.name for c in STANDARD_CODES}
+    if len(rows) != 16:
+        raise SystemExit(f"FAIL: the runner gave {len(rows)} rows, not 16")
+    for r in rows:
+        if set(r) != SCHEMA_KEYS:
+            raise SystemExit(f"FAIL: runner row {r.get('name')} has keys {sorted(r)}")
+        if r["bit_error_rate"] != 0 or r["total_samples"] < 3 or \
+                r["total_samples"] != len(r["update_ns"]):
+            raise SystemExit(f"FAIL: runner row K={r['K']} R={r['R']} {r['name']}: bit error rate "
+                             f"{r['bit_error_rate']}, {r['total_samples']} samples")
+        batch = runner.DEFAULT_BATCH[names[r["K"], r["R"]]]
+        msym = r["total_output_symbols"] / np.mean(r["update_ns"]) * 1e3
+        mbit = r["total_bits"] / np.mean(r["chainback_ns"]) * 1e3
+        print(f"[{tag}] runner K={r['K']} R={r['R']} {r['name']} batch {batch}: update "
+              f"{msym:.6g} Msym/s ({np.mean(r['update_ns']) / 1e6:.4f} ms), chainback "
+              f"{mbit:.6g} Mbit/s ({np.mean(r['chainback_ns']) / 1e6:.4f} ms), init "
+              f"{np.mean(r['init_ns']) / 1e3:.2f} us, {r['total_samples']} samples, bit error rate 0")
+    return total
+
+
 def drive_phase_fns(tag, rng):
     """The ICE frames through ``dispatch.phase_fns``: the launch counts are
     zeroed just before and read just after.  Whole frames take the f8 route
@@ -549,7 +739,7 @@ def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
 
 
 def phase_decode(tag, rng):
-    """The four paths; returns the launches of each kernel summed over the
+    """The six paths; returns the launches of each kernel summed over the
     paths."""
     paths = [
         drive_path(tag, "K=7", CODE, soft8_spec(2), FRAME_BYTES, [(B_INPLACE, None), (B_TB, None)],
@@ -564,6 +754,8 @@ def phase_decode(tag, rng):
     paths.append(drive_path(tag, "ICE", VITERBI224, soft8_spec(2), ICE_BYTES, [(B_ICE, None)],
                             rng, ("acs_update_large4", "acs_update_large2", "acs_update_large")))
     paths.append(drive_phase_fns(tag, rng))
+    paths.append(drive_tb2_path(tag, rng))
+    paths.append(drive_runner(tag))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
     zero = [name for name, n in launches.items() if n == 0]
     if zero:
@@ -609,6 +801,7 @@ def decoder_phases(tag, code, numeric, B, n_bytes, rng, label, unit=("Msym/s", 1
     mbit = B * nbits / (cb_ms * 1e-3) / 1e6
     print(f"[{tag}] decoder {label} B={B} update phase {upd_ms:.4f} ms = {rate:.1f} {unit[0]}; "
           f"chainback phase {cb_ms:.4f} ms = {mbit:.4g} Mbit/s")
+    return upd_ms, cb_ms
 
 
 def phase_timing(tag, rng):
@@ -763,6 +956,74 @@ def phase_timing_quad(tag, rng, rows):
     torch.cuda.empty_cache()
 
 
+
+def phase_fns_phases(tag, code, numeric, B, n_bytes, rng, label, chain_ks=()):
+    """Update and chainback phase times of ``dispatch.phase_fns`` in the
+    kernels' own layout (CUDA-event means after a warm-up); with
+    ``chain_ks``, the traceback chain's time a link at those lengths, which
+    agree when no link waits for the host."""
+    T, nbits = code.transmit_bits(n_bytes), n_bytes * 8
+    _, sym = noisy_symbols(numeric, B, rng, 3, code, n_bytes)
+    init_fn, update_fn, chainback_fn, prepare_fn, make_cb_chain, _ = dispatch.phase_fns(
+        code, numeric, nbits, B)
+    prepared, m = prepare_fn(sym), init_fn(B)
+    iters = 10 if code.K <= 9 else 3
+    upd_ms = timed_ms(lambda: update_fn(m, prepared), iters)
+    _, words, _ = update_fn(m, prepared)
+    cb_ms = timed_ms(lambda: chainback_fn(words), iters)
+    print(f"[{tag}] phase_fns {label} B={B} update phase {upd_ms:.4f} ms = "
+          f"{B * T * code.R / upd_ms / 1e3:.1f} Msym/s; chainback phase {cb_ms:.4f} ms = "
+          f"{B * nbits / cb_ms / 1e3:.4g} Mbit/s")
+    if chain_ks:
+        per_link = [timed_ms(lambda: make_cb_chain(k)(words), 3) / k for k in chain_ks]
+        print(f"[{tag}] phase_fns {label} B={B} chainback chain, ms a link at "
+              f"k={list(chain_ks)}: {', '.join(f'{x:.4f}' for x in per_link)}")
+    del words
+    torch.cuda.empty_cache()
+    return upd_ms, cb_ms
+
+
+def phase_timing_tb2(tag, rng, rows):
+    """The depth-2 kernel at K=7 and K=9, B=1024, beside ``acs_update_tb`` and
+    the in-place kernel on the same frames; then the phases of ``phase_fns``
+    in the kernels' own layout: the in-place family at the runner's batches
+    (beside the decoder's phases at K=7 and Cassini, whose difference is the
+    layout copies), and the K <= 9 family with the in-place route off."""
+    for code, n_bytes, key in ((CODE, FRAME_BYTES, None), (VITERBI29, 512, "k9")):
+        numeric, B = soft8_spec(code.R), B_TB2
+        _, sym = noisy_symbols(numeric, B, rng, 4, code, n_bytes)
+        s, m0 = trb(sym), metrics0(code, numeric, B)
+        T = s.shape[0]
+        shape = f"K={code.K} B={B} T={T}"
+        kernel_row(tag, rows, "acs_update_tb2", kernels2.acs_update_tb2,
+                   kernels2.acs_update_tb2_ref, (code, numeric, m0, s, T), shape,
+                   acs_bound_ms(B, T, code), 10, key=key)
+        tb_ms = timed_ms(lambda: kernels.acs_update_tb(code, numeric, m0, s, T), 10)
+        ip_ms = timed_ms(lambda: inplace.acs_update_inplace(code, numeric, m0, s, T, 0), 10)
+        print(f"[{tag}] on the same frames, {shape}: acs_update_tb {tb_ms:.4f} ms, "
+              f"acs_update_inplace {ip_ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+    for code, n_bytes in ((CODE, FRAME_BYTES), (VITERBI47, 1024), (VITERBI29, 512),
+                          (VITERBI49, 512), (VITERBI615, CAS_BYTES)):
+        B = runner.DEFAULT_BATCH[code.name]
+        numeric = soft8_spec(code.R)
+        upd, cb = phase_fns_phases(tag, code, numeric, B, n_bytes, rng, f"{code.name} (in-place)",
+                                   chain_ks=(4, 16) if code is CODE else ())
+        if code in (CODE, VITERBI615):
+            d_upd, d_cb = decoder_phases(tag, code, numeric, B, n_bytes, rng,
+                                         f"{code.name} (in-place)")
+            print(f"[{tag}] {code.name} B={B} layout copies (decoder phase - phase_fns phase): "
+                  f"update {d_upd - upd:.4f} ms, chainback {d_cb - cb:.4f} ms")
+    with inplace_off():
+        for code, n_bytes in ((CODE, FRAME_BYTES), (VITERBI29, 512)):
+            for B in (512, B_TB2):
+                route = "depth-2" if B >= 1024 else "state-order"
+                phase_fns_phases(tag, code, soft8_spec(code.R), B, n_bytes, rng,
+                                 f"{code.name} ({route}, in-place off)",
+                                 chain_ks=(4, 16) if (code is CODE and B == B_TB2) else ())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -777,10 +1038,12 @@ def main() -> int:
     errs = phase_kernels(tag, rng)
     phase_kernels_large(tag, rng, errs)
     phase_kernels_quad(tag, rng, errs)
+    phase_kernels_tb2(tag, rng, errs)
     launches = phase_decode(tag, rng)
     rows = phase_timing(tag, rng)
     phase_timing_large(tag, rng, rows)
     phase_timing_quad(tag, rng, rows)
+    phase_timing_tb2(tag, rng, rows)
     print(f"[{tag}] chip_smoke: {time.perf_counter() - t0:.1f} s in all")
 
     line = {"kernels": [

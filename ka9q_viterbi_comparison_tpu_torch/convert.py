@@ -9,7 +9,10 @@ objects of it passes their fields and numpy arrays here:
     decoder_state_from_numpy(dec, np.asarray(jdec.metrics), np.asarray(words),
                              np.asarray(jdec.renorm_offset), jdec._steps)
 
-so that a stream started in JAX resumes in the port.  The words must come
+so that a stream started in JAX resumes in the port.  The state of the JAX
+package's native-layout phases (``dispatch.phase_fns``: metrics ``[S, B]``,
+words ``(dec [Tp, W, B], T, B)``) crosses through ``metrics_from_numpy`` and
+``native_words_from_numpy`` into the port's phases of the same family.  The words must come
 from the same route the port decoder takes at that batch (the JAX ``pallas``
 backend for the port's ``cuda`` backend, ``jnp`` for ``torch``): the in-place
 route packs them in position order.
@@ -24,7 +27,8 @@ from .configs import CodeSpec, NumericSpec
 from .models.decoder import ViterbiDecoder
 
 __all__ = ["code_from_fields", "numeric_from_fields", "decoder_state_from_numpy",
-           "words_from_numpy", "tables_from_numpy"]
+           "words_from_numpy", "tables_from_numpy", "metrics_from_numpy",
+           "native_words_from_numpy"]
 
 
 def code_from_fields(name: str, K: int, R: int, polys) -> CodeSpec:
@@ -71,3 +75,22 @@ def tables_from_numpy(tables: dict, device: torch.device | str = "cpu") -> dict:
     kernels (``{"f4" | "f8" | "g2": uint32 array}``) as the port's tensors,
     for ``ops.radix_planes.chainback_planes``."""
     return {name: words_from_numpy(t, device) for name, t in tables.items()}
+
+
+def metrics_from_numpy(metrics, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Path metrics of either layout (``[B, S]`` or the native ``[S, B]``) as
+    the port's contiguous int32 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(metrics), dtype=np.int32).copy()).to(
+        device)
+
+
+def native_words_from_numpy(words_native, device: torch.device | str = "cpu"):
+    """The words of a native-layout update phase, ``(dec [Tp, W, B] uint32, T,
+    B)``, as the port's ``(int32 tensor, T, B)``.  The port's tracebacks take
+    any ``Tp >= T``, so the JAX package's time padding stays as it is; its
+    batch padding (TPU lanes) must be cut off by the caller."""
+    dec, T, B = words_native
+    dec = words_from_numpy(dec, device)
+    if dec.ndim != 3 or dec.shape[0] < T or dec.shape[2] != B:
+        raise ValueError(f"native words {tuple(dec.shape)} do not match T={T}, B={B}")
+    return dec, int(T), int(B)

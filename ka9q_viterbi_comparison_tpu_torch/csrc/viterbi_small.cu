@@ -1,8 +1,9 @@
-// Whole-frame Viterbi kernels for Hopper (sm_90a): the four kernels of the
+// Whole-frame Viterbi kernels for Hopper (sm_90a): the five kernels of the
 // small-trellis decode path, bound to Python with ctypes through the plain
 // extern "C" launchers at the end of this file.
 //
 //   acs_tb_kernel         replaces ops/pallas/kernels.py  acs_update_tb   (_acs_kernel)
+//   acs_tb2_kernel        replaces ops/pallas/kernels2.py acs_update_tb2  (_acs_kernel2)
 //   chainback_kernel<ROT=false>  replaces ops/pallas/kernels.py  chainback_tb    (_chainback_kernel)
 //   acs_inplace_kernel    replaces ops/pallas/inplace.py  acs_update_inplace (_acs_inplace_kernel)
 //   chainback_kernel<ROT=true>   replaces ops/pallas/inplace.py  chainback_inplace  (_chainback_inplace_kernel)
@@ -150,6 +151,128 @@ __global__ void acs_tb_kernel(const int* __restrict__ metrics_in, const int* __r
   }
   __syncthreads();
   const int* fin = sm.m + (t_real & 1) * S;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[(size_t)s * B + b] = fin[s];
+}
+
+// OR-reduce v over aligned groups of `width` lanes (a power of two <= 32).
+// Every lane of the warp must call it.
+__device__ __forceinline__ unsigned or_reduce(unsigned v, int width) {
+  for (int o = 1; o < width; o <<= 1) v |= __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One butterfly of pair entry e: predecessors lo (h=0) and hi (h=1) give new
+// states 2*s2 and 2*s2 + 1; returns their two decision bits.
+template <int R>
+__device__ __forceinline__ unsigned butterfly(int e, int base, const int* coef, int lo, int hi,
+                                              int* out) {
+  int pen[4];
+  penalties<R>(e, base, coef, pen);
+  unsigned bits = 0;
+#pragma unroll
+  for (int bb = 0; bb < 2; ++bb) {
+    const int c_lo = lo + pen[bb], c_hi = hi + pen[2 + bb];
+    const bool d = c_hi < c_lo;
+    out[bb] = d ? c_hi : c_lo;
+    bits |= (unsigned)d << bb;
+  }
+  return bits;
+}
+
+// Depth-2 state-order ACS (counterpart of kernels2.py _acs_kernel2): the
+// contract of acs_tb_kernel, two steps a loop pass.  Grid: one block per
+// frame, S/4 working threads (whole warps; lanes past S/4 only take part in
+// the barriers and shuffles, so at K=7 half of the one warp works).  Thread j
+// owns predecessors {j, j+S/4, j+S/2, j+3S/4}.  Step A gives it the new
+// states 2j, 2j+1 (pair entry j) and 2j+S/2, 2j+S/2+1 (pair entry j+S/4) in
+// registers; step B pairs (A[2j+b1], A[2j+b1+S/2]) under pair entry 2j+b1
+// and yields the finals 4j..4j+3.  The intermediates never leave registers,
+// the finals cross threads through ping-pong metric buffers in shared
+// memory, and a pair costs one barrier.  The thread's four table entries are
+// loop constants in registers.  Decision words are written per step in
+// canonical order: step A's bits lie in two words (states 2j.. and
+// 2j+S/2..; one word below 64 states), step B's four are adjacent; lanes
+// that share a word OR their bits with shuffles and the first stores.  An
+// odd t_real ends with one step A alone, whose states are stored at 2j+b.
+template <int R>
+__global__ void acs_tb2_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
+                               const int* __restrict__ etab, int* __restrict__ metrics_out,
+                               int* __restrict__ dec, int K, int low, int hl, int B,
+                               int t_real) {
+  const int S = 1 << (K - 1), S2 = S >> 1, n4 = S >> 2, W = S >= 32 ? S >> 5 : 1;
+  const int b = blockIdx.x, j = threadIdx.x;
+  const bool active = j < n4;
+  extern __shared__ __align__(16) int smem2[];
+  int* m = smem2;          // 2 * S metrics, ping-pong by pair
+  int* ssym = m + 2 * S;   // kStage * R staged symbols
+  for (int s = threadIdx.x; s < S; s += blockDim.x) m[s] = metrics_in[(size_t)s * B + b];
+  const int jj = active ? j : 0;
+  const int eA0 = etab[jj], eA1 = etab[jj + n4], eB0 = etab[2 * jj], eB1 = etab[2 * jj + 1];
+  const int shA = (2 * j) & 31, shB = (4 * j) & 31;
+
+  int cur = 0;
+  for (int t = 0; t < t_real; t += 2) {
+    if ((t % kStage) == 0) {
+      // Every thread is past the barrier that ended the previous pair, so
+      // the staged symbols are free to be overwritten.
+      stage_symbols<R>(sym, ssym, t, t_real, B, b);
+      __syncthreads();
+    }
+    const bool both = t + 1 < t_real;
+    const int* mc = m + cur * S;
+    int* mn = m + (cur ^ 1) * S;
+    unsigned lo2 = 0, hi2 = 0, nib = 0;
+    if (active) {
+      const int* y = ssym + (t % kStage) * R;
+      int base = 0, coef[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        base += y[r] - low;
+        coef[r] = hl - 2 * y[r];
+      }
+      int a[4];  // A[2j], A[2j+1], A[2j+S/2], A[2j+S/2+1]
+      lo2 = butterfly<R>(eA0, base, coef, mc[j], mc[j + S2], a);
+      hi2 = butterfly<R>(eA1, base, coef, mc[j + n4], mc[j + n4 + S2], a + 2);
+      if (both) {
+        y += R;
+        base = 0;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          base += y[r] - low;
+          coef[r] = hl - 2 * y[r];
+        }
+        int f[4];  // finals 4j .. 4j+3
+        nib = butterfly<R>(eB0, base, coef, a[0], a[2], f);
+        nib |= butterfly<R>(eB1, base, coef, a[1], a[3], f + 2) << 2;
+        *reinterpret_cast<int4*>(mn + 4 * j) = make_int4(f[0], f[1], f[2], f[3]);
+      } else {
+        mn[2 * j] = a[0];
+        mn[2 * j + 1] = a[1];
+        mn[2 * j + S2] = a[2];
+        mn[2 * j + S2 + 1] = a[3];
+      }
+    }
+    // Step A's words: sixteen lanes share the word of states 2j.. and the
+    // word of states 2j+S/2..
+    const unsigned wl = or_reduce(lo2 << shA, 16), wh = or_reduce(hi2 << shA, 16);
+    if (active && (j & 15) == 0) {
+      int* row = dec + (size_t)t * W * B + b;
+      if (S >= 64) {
+        row[(size_t)(j >> 4) * B] = (int)wl;
+        row[(size_t)((j >> 4) + (W >> 1)) * B] = (int)wh;
+      } else {
+        row[0] = (int)(wl | (wh << S2));
+      }
+    }
+    if (both) {
+      // Step B's words: eight lanes share the word of states 4j..
+      const unsigned wb = or_reduce(nib << shB, 8);
+      if (active && (j & 7) == 0) dec[((size_t)(t + 1) * W + (j >> 3)) * B + b] = (int)wb;
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  const int* fin = m + cur * S;
   for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[(size_t)s * B + b] = fin[s];
 }
 
@@ -326,6 +449,38 @@ cudaError_t acs_dispatch(bool inplace, const int* m_in, const int* sym, const in
   }
 }
 
+template <int R>
+cudaError_t launch_acs2(const int* m_in, const int* sym, const int* etab, int* m_out, int* dec,
+                        int K, int low, int hl, int B, int t_real, int smem, cudaStream_t stream) {
+  const int n4 = 1 << (K - 3);
+  const int threads = (n4 + 31) / 32 * 32;
+  cudaError_t err = cudaFuncSetAttribute(
+      acs_tb2_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  acs_tb2_kernel<R><<<B, threads, smem, stream>>>(m_in, sym, etab, m_out, dec, K, low, hl, B,
+                                                  t_real);
+  return cudaGetLastError();
+}
+
+cudaError_t acs2_dispatch(const int* m_in, const int* sym, const int* etab, int* m_out, int* dec,
+                          int K, int R, int low, int hl, int B, int t_real, int smem,
+                          cudaStream_t s) {
+  // Depth 2 needs four predecessors a thread (K >= 3); a block holds at most
+  // 1024 threads of S/4 (K <= 13).
+  if (K < 3 || K > 13 || B < 1 || t_real < 1) return cudaErrorInvalidValue;
+  switch (R) {
+    case 1: return launch_acs2<1>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 2: return launch_acs2<2>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 3: return launch_acs2<3>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 4: return launch_acs2<4>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 5: return launch_acs2<5>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 6: return launch_acs2<6>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 7: return launch_acs2<7>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    case 8: return launch_acs2<8>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -337,6 +492,13 @@ int viterbi_acs_tb(const void* m_in, const void* sym, const void* etab, void* m_
   return (int)acs_dispatch(false, (const int*)m_in, (const int*)sym, (const int*)etab,
                            (int*)m_out, (int*)dec, K, R, low, hl, B, t_real, 0, smem,
                            (cudaStream_t)stream);
+}
+
+// smem: 4 * (2 * S + kStage * R) bytes (ops/cuda/kernels2.py tb2_smem_bytes).
+int viterbi_acs_tb2(const void* m_in, const void* sym, const void* etab, void* m_out, void* dec,
+                    int K, int R, int low, int hl, int B, int t_real, int smem, void* stream) {
+  return (int)acs2_dispatch((const int*)m_in, (const int*)sym, (const int*)etab, (int*)m_out,
+                            (int*)dec, K, R, low, hl, B, t_real, smem, (cudaStream_t)stream);
 }
 
 int viterbi_acs_inplace(const void* m_in, const void* sym, const void* etab, void* m_out,

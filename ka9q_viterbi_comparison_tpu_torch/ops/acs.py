@@ -1,7 +1,7 @@
 """Add-compare-select (ACS) symbol update: the port's portable path.
 
 Port of ``ka9q_viterbi_comparison_tpu/ops/acs.py`` (``init_metrics``,
-``acs_step``, ``acs_update``), the reference's hot loop #1
+``acs_step``, ``acs_update``, ``acs_update_rotating``), the reference's hot loop #1
 (ref: ka9q_libfec_port/viterbi27_sse2.cpp:119-175).  The time loop is a Python
 loop of whole-state-vector tensor ops over ``[B, S]``; it runs on any device,
 and is the CPU oracle the CUDA kernels' plain versions are held against.
@@ -16,13 +16,14 @@ state ``s``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..configs import CodeSpec, NumericSpec
 from ..utils.bits import pack_bits_to_words
 from .branch import branch_penalties, penalty_base_and_coef, transition_tables
 
-__all__ = ["init_metrics", "acs_update", "acs_step"]
+__all__ = ["init_metrics", "acs_update", "acs_step", "acs_update_rotating"]
 
 
 def init_metrics(
@@ -143,4 +144,89 @@ def acs_update(
     else:
         out = torch.empty((B, 0, code.decision_words), dtype=torch.int32,
                           device=metrics.device)
+    return m, out, offset
+
+
+def _rotl_index(nbits: int, r: int) -> np.ndarray:
+    """``perm[p] = rotl(p, r)`` over ``nbits``-bit indices."""
+    p = np.arange(1 << nbits, dtype=np.int64)
+    r %= nbits
+    return ((p << r) | (p >> (nbits - r))) & ((1 << nbits) - 1) if r else p
+
+
+def acs_update_rotating(
+    code: CodeSpec,
+    numeric: NumericSpec,
+    metrics: torch.Tensor,
+    symbols: torch.Tensor,
+    t0: int = 0,
+):
+    """Symbol update with rotating state addresses, in plain PyTorch.
+
+    Same contract as ``acs_update`` (metrics in and out in state order), but
+    the decision words come back packed in *position* order: bit
+    ``rotr(s, (t0 + t + 1) mod (K-1))`` of step ``t``'s words is the decision
+    of new state ``s``, the packing of the in-place kernel, which
+    ``chainback.walk(..., rotated=True)`` reads.
+
+    At global step ``t`` the metric of state ``s`` sits at position
+    ``rotr(s, t mod (K-1))``.  The two predecessors of a butterfly then
+    differ in position bit ``j = (K - 2 - t) mod (K-1)``, and its two new
+    states land on the same two positions, so a step is an elementwise
+    compare-select between the halves of ``[B, G, 2, 2^j]`` with no
+    interleave of the state axis.
+
+    ``t0``: trellis steps consumed before this call (only ``t0 mod (K-1)``
+    matters).  With ``numeric.renorm_interval`` set, the schedule counts the
+    steps of this call.
+    """
+    B, T, R = symbols.shape
+    K = code.K
+    nrot = K - 1
+    S = code.num_states
+    interval = numeric.renorm_interval
+    t0 = int(t0) % nrot
+    dev = metrics.device
+    tables = torch.as_tensor(transition_tables(code), device=dev).to(torch.int32)  # [4, R, S/2]
+    base_all, coef_all = penalty_base_and_coef(numeric, symbols)  # [B, T], [B, T, R]
+
+    phase_tables: dict[int, torch.Tensor] = {}
+
+    def tables_at(phase: int, j: int) -> torch.Tensor:
+        """``[4, R, G, 2^j]``: the pair entry of the state whose metric sits
+        at low position ``(g << (j + 1)) | r``."""
+        if phase not in phase_tables:
+            stride, G = 1 << j, S >> (j + 1)
+            q = (np.arange(G)[:, None] << (j + 1)) | np.arange(stride)[None, :]
+            s2 = _rotl_index(nrot, phase)[q]
+            phase_tables[phase] = tables[:, :, torch.as_tensor(s2.reshape(-1), device=dev)].reshape(
+                4, R, G, stride)
+        return phase_tables[phase]
+
+    m = metrics.to(torch.int32)[:, torch.as_tensor(_rotl_index(nrot, t0), device=dev)]
+    offset = torch.zeros((B,), dtype=torch.int32, device=dev)
+    words = []
+    for t in range(T):
+        phase = (t0 + t) % nrot
+        j = (K - 2 - phase) % nrot
+        stride, G = 1 << j, S >> (j + 1)
+        tb = tables_at(phase, j)
+        pen = base_all[:, t, None, None, None].expand(B, 4, G, stride)
+        for r in range(R):
+            pen = pen + coef_all[:, t, r, None, None, None] * tb[:, r]
+        x = m.reshape(B, G, 2, stride)
+        c_lo = x[:, None, :, 0] + pen[:, :2]  # [B, 2 (input bit), G, stride]
+        c_hi = x[:, None, :, 1] + pen[:, 2:]
+        d = c_hi < c_lo
+        m = torch.where(d, c_hi, c_lo).permute(0, 2, 1, 3).reshape(B, S)
+        dec = d.permute(0, 2, 1, 3).reshape(B, S)
+        if interval and t % interval == interval - 1:
+            shift = m.min(dim=-1).values
+            m = m - shift[:, None]
+            offset = offset + shift
+        words.append(_pack_decisions(dec))
+    out = (torch.stack(words, dim=1) if words else
+           torch.empty((B, 0, code.decision_words), dtype=torch.int32, device=dev))
+    # position p of phase f holds state rotl(p, f): back to state order
+    m = m[:, torch.as_tensor(_rotl_index(nrot, nrot - (t0 + T) % nrot), device=dev)]
     return m, out, offset

@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: dict[str, int] = {
     "acs_update_tb": 0,
+    "acs_update_tb2": 0,
     "chainback_tb": 0,
     "acs_update_inplace": 0,
     "chainback_inplace": 0,
@@ -55,6 +56,7 @@ _PI = ctypes.POINTER(ctypes.c_int)
 # extern "C" entry points of the sources: name -> argtypes.
 _SIGNATURES = {
     "viterbi_acs_tb": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_tb2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),
     "viterbi_chainback_inplace": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -1,10 +1,11 @@
 """Backend dispatch for the CUDA kernels.
 
 Port of ``ka9q_viterbi_comparison_tpu/ops/pallas/dispatch.py`` (``acs_update``,
-``_large_update``, ``chainback``, ``use_inplace``, ``supports_chainback``,
-``unpack_bit_words``, and the large-K half of ``phase_fns``).  It bridges
-the batch-major public API (``[B, ...]`` tensors, the layout of the portable
-path) to the kernels' layouts.
+``_large_update``, ``_small_k_impl``, ``chainback``, ``use_inplace``,
+``supports_chainback``, ``unpack_bit_words``, ``phase_fns`` and
+``_inplace_phase_fns`` with their chains).  It bridges the batch-major public
+API (``[B, ...]`` tensors, the layout of the portable path) to the kernels'
+layouts.
 
 Routes, decided on the code and the batch B alone so that update and
 chainback agree:
@@ -15,7 +16,9 @@ chainback agree:
   packages pack the same words -- except at K=15 and B > 256, where the JAX
   package leaves the in-place kernel for a TPU compiler fault
   (``ops/pallas/dispatch.py:89``) and this port does not.
-* K <= 9 otherwise: the state-order pair (``kernels.py``).
+* K <= 9 otherwise: the state-order pair (``kernels.py``); from B = 1024 up
+  its update is the depth-2 kernel (``kernels2.py``), which has the same
+  contract, so no output depends on the threshold.
 * K > 9 otherwise: the state-blocked large-K kernels.  R <= 2 codes with a
   state block of at least 512 states (every such K >= 10, ICE among them)
   take the depth-4 kernel ``acs_update_large4`` (``large_k4.py``, its 1-3
@@ -26,11 +29,14 @@ chainback agree:
   to K=15 and through the portable walk (``ops/chainback.py``) above, as in
   the JAX package.
 
-``phase_fns`` gives the update and traceback of the large-K family as
-separate phases with no layout change between them.  Above K=15 its update
-returns a walk table in place of words (``f8`` for whole frames, else
-``f4``, written by the depth-4 kernel; else words and tables built from
-them) and its traceback retires 8 or 4 steps a fetch (``ops/radix_planes.py``).
+``phase_fns`` gives the update and traceback of every family as separate
+phases in the kernels' own layout, with no transpose, pad or copy inside a
+phase, and chains of ``k`` phases queued on one stream with no host
+synchronisation between links (a traceback's end state travels as a device
+tensor).  In the large-K family above K=15 the update returns a walk table
+in place of words (``f8`` for whole frames, else ``f4``, written by the
+depth-4 kernel; else words and tables built from them) and the traceback
+retires 8 or 4 steps a fetch (``ops/radix_planes.py``).
 
 The batch is not padded: each CUDA block owns whole frames, so there is no
 lane width to fill (the JAX package pads to 128 lanes only on a TPU).  Time
@@ -46,9 +52,9 @@ import torch.nn.functional as F
 from ...configs import CodeSpec, NumericSpec
 from ...utils.bits import bits_to_bytes, unpack_words_to_bits
 from .. import acs, chainback as cb, radix_planes as rp
-from . import flags, inplace, kernels, large_k2, large_k4
+from . import flags, inplace, kernels, kernels2, large_k2, large_k4
 
-__all__ = ["acs_update", "chainback", "phase_fns", "use_inplace", "supports",
+__all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace", "supports",
            "supports_chainback", "fits_shared", "unpack_bit_words"]
 
 
@@ -125,6 +131,27 @@ def _large_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
               symbols.to(torch.int32).contiguous(), time_major=time_major)
 
 
+def _small_k_impl(batch: int):
+    """The state-order update for K <= 9: the depth-2 kernel from batch 1024
+    up (the JAX package's threshold, which reads the batch padded to TPU
+    lanes; here a block owns one frame, so the batch itself), the single-step
+    kernel below.  Both have one contract."""
+    if batch >= 1024:
+        return kernels2.acs_update_tb2
+    return kernels.acs_update_tb
+
+
+def _end_states(code: CodeSpec, endstate, batch: int, device: torch.device) -> torch.Tensor:
+    """``endstate`` (an int, or a 0-d, ``[B]`` or ``[1, B]`` tensor) as the
+    ``[1, B]`` int32 tensor the traceback kernels read.  A tensor stays on
+    its device: nothing here waits for the stream."""
+    mask = code.num_states - 1
+    if isinstance(endstate, torch.Tensor):
+        end = endstate.to(device=device, dtype=torch.int32) & mask
+        return end.reshape(1, -1).expand(1, batch).contiguous()
+    return torch.full((1, batch), int(endstate) & mask, dtype=torch.int32, device=device)
+
+
 def acs_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
                symbols: torch.Tensor, t0: int = 0):
     """Batch-major wrapper matching ``ops.acs.acs_update``'s contract:
@@ -141,15 +168,15 @@ def acs_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
     if not supports(code):
         return _large_update(code, numeric, metrics, symbols)
     sym = symbols.to(torch.int32).permute(1, 2, 0).contiguous()  # [T, R, B]
-    m, dec = kernels.acs_update_tb(code, numeric, metrics.to(torch.int32).T.contiguous(),
-                                   sym, T)
+    m, dec = _small_k_impl(B)(code, numeric, metrics.to(torch.int32).T.contiguous(), sym, T)
     offset = torch.zeros((B,), dtype=torch.int32, device=metrics.device)
     return m.T.contiguous(), dec.permute(2, 0, 1), offset
 
 
 def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,
-              endstate: int = 0) -> torch.Tensor:
-    """Batch-major wrapper matching ``ops.chainback.chainback``'s contract.
+              endstate: torch.Tensor | int = 0) -> torch.Tensor:
+    """Batch-major wrapper matching ``ops.chainback.chainback``'s contract;
+    ``endstate`` is an int or a device tensor (0-d, ``[B]`` or ``[1, B]``).
 
     Routing mirrors ``acs_update``: words of the in-place pair are packed in
     position order and walk through ``chainback_inplace``; above K=15 the
@@ -162,30 +189,103 @@ def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,
     inplace_route = use_inplace(code, B, words.device)
     Tp = inplace.pad_time_inplace(code, T)
     w = F.pad(words.to(torch.int32).permute(1, 2, 0), (0, 0, 0, 0, 0, Tp - T)).contiguous()
-    end = torch.full((1, B), endstate & (code.num_states - 1), dtype=torch.int32,
-                     device=words.device)
+    end = _end_states(code, endstate, B, words.device)
     walk = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
     bits = unpack_bit_words(walk(code, w, end, T), T)
     return bits_to_bytes(bits[:, code.K - 1 : code.K - 1 + num_data_bits])
+
+
+def make_chains(update_fn, chainback_impl):
+    """The two chain factories of a family, from its ``update_fn(metrics,
+    prepared) -> (metrics, words, offset)`` and its ``chainback_impl(words,
+    endstate) -> bytes``.  ``make_update_chain(k)`` runs ``k`` updates, each
+    on the metrics of the one before, and returns the last ``(metrics,
+    words)``; ``make_chainback_chain(k)`` runs ``k`` tracebacks, each from
+    the end state ``out[0, -1]`` of the one before (a 0-d device tensor), and
+    returns the last bytes.  The links are queued on the current stream;
+    nothing between them reads a tensor back to the host."""
+    def make_chainback_chain(k):
+        def run(words):
+            out = chainback_impl(words, 0)
+            for _ in range(k - 1):
+                out = chainback_impl(words, out[0, -1])
+            return out
+
+        return run
+
+    def make_update_chain(k):
+        def run(metrics, prepared):
+            for _ in range(k):
+                metrics, words, _ = update_fn(metrics, prepared)
+            return metrics, words
+
+        return run
+
+    return make_chainback_chain, make_update_chain
+
+
+def _native_phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
+                      device: torch.device, inplace_route: bool):
+    """The phases of the two whole-frame families in the kernels' own layout:
+    metrics stay ``[S, B]`` and decisions ``[Tp, W, B]`` between phases
+    (position-packed on the in-place route, whole frames from step 0, so
+    reset metrics in state order are already in position space)."""
+    from ...models.decoder import as_symbols
+
+    walk = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
+
+    def init_fn(batch):
+        return acs.init_metrics(code, numeric, batch, device=device).T.contiguous()  # [S, B]
+
+    def prepare_fn(symbols):
+        sym = as_symbols(symbols, device)
+        B, T, _ = sym.shape
+        Tp = inplace.pad_time_inplace(code, T)  # whole traceback words
+        native = F.pad(sym.permute(1, 2, 0), (0, 0, 0, 0, 0, Tp - T)).contiguous()
+        return native, T, B  # [Tp, R, B]
+
+    def update_fn(metrics_sb, prepared):
+        sym_native, T, B = prepared
+        if inplace_route:
+            m, dec = inplace.acs_update_inplace(code, numeric, metrics_sb, sym_native, T, 0)
+        else:
+            m, dec = _small_k_impl(B)(code, numeric, metrics_sb, sym_native, T)
+        return m, (dec, T, B), torch.zeros((B,), dtype=torch.int32, device=m.device)
+
+    def _cb_impl(words_native, endstate):
+        dec, T, B = words_native
+        bits = unpack_bit_words(walk(code, dec, _end_states(code, endstate, B, dec.device), T), T)
+        return bits_to_bytes(bits[:, code.K - 1 : code.K - 1 + num_data_bits])
+
+    def chainback_fn(words_native):
+        return _cb_impl(words_native, 0)
+
+    return (init_fn, update_fn, chainback_fn, prepare_fn, *make_chains(update_fn, _cb_impl))
 
 
 def phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
               batch: int | None = None, device: torch.device | str = "cuda"):
     """The decoder's lifecycle as separate phases in the kernels' own layout,
     with no layout change between update and traceback: the configuration a
-    benchmark times.  Serves the large-K family (K > 9 below the in-place
-    batch).
+    benchmark times.
 
-    Returns ``(init_fn, update_fn, chainback_fn, prepare_fn, None, None)``:
-    ``init_fn(batch)`` gives reset metrics ``[B, S]``; ``prepare_fn(symbols
-    [B, T, R])`` stages the symbols on ``device`` outside the timed phases;
-    ``update_fn(metrics, prepared)`` returns ``(metrics, words, offset)``;
-    ``chainback_fn(words)`` returns the bytes ``[B, num_data_bits // 8]``.
-    The last two places are the JAX package's ``make_*_chain`` factories,
-    timing devices for its compiler, which wait for the benchmark harness.
+    Returns ``(init_fn, update_fn, chainback_fn, prepare_fn,
+    make_chainback_chain, make_update_chain)``: ``init_fn(batch)`` gives
+    reset metrics; ``prepare_fn(symbols [B, T, R])`` stages the symbols on
+    ``device`` outside the timed phases; ``update_fn(metrics, prepared)``
+    returns ``(metrics, words, offset)``; ``chainback_fn(words)`` returns the
+    bytes ``[B, num_data_bits // 8]``.  The last two are the chain factories of
+    ``make_chains``: ``k`` updates whose metrics feed forward, ``k``
+    tracebacks each from the end state of the one before, with no host
+    synchronisation between the links.
 
-    What ``words`` is follows the JAX package's defaults.  Up to K=15: the
-    batch-major words of ``_large_update``, walked by ``chainback``.  Above:
+    Three families, chosen from the code and ``batch`` as ``acs_update``
+    chooses.  In-place (5 < K <= 15 at ``batch >= 128``) and K <= 9: metrics
+    ``[S, B]``, ``prepared = (symbols [Tp, R, B], T, B)`` with time padded to
+    whole traceback words, ``words = (dec [Tp, W, B], T, B)``.  Large-K:
+    metrics ``[B, S]``, symbols ``[B, T, R]``, and what ``words`` is follows
+    the JAX package's defaults.  Up to K=15: the batch-major words of
+    ``_large_update``, walked by ``chainback``.  Above:
     ``{"f8": table}`` from ``acs_update_large4_fields8`` for a whole frame
     (``T == num_data_bits + K - 1``), anchored at the largest step ``<= K-1``
     that leaves whole 8-step windows; else ``{"f4": table}`` from
@@ -198,11 +298,9 @@ def phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
     from ...models.decoder import as_symbols, resolve_device
 
     device = resolve_device(device)
-    if use_inplace(code, batch if batch else 128, device) or supports(code):
-        raise NotImplementedError(
-            f"phase_fns serves the large-K family; {code.name} at batch {batch} is of the "
-            f"{'in-place' if not supports(code) else 'K <= 9'} family, whose phases come with the "
-            "benchmark harness (ROADMAP.md, queue 1 item 6)")
+    inplace_route = use_inplace(code, batch if batch else 128, device)
+    if inplace_route or supports(code):
+        return _native_phase_fns(code, numeric, num_data_bits, device, inplace_route)
     use_planes = not supports_chainback(code) and code.K - 1 >= rp.MIN_N
     # Anchor at the first kept data bit: the walk skips the discarded
     # initial-state steps.
@@ -257,4 +355,6 @@ def phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
     def chainback_fn(words):
         return _cb_impl(words, 0)
 
-    return init_fn, update_fn, chainback_fn, prepare_fn, None, None
+    # An update link is the whole update phase: the kernel and, on the route
+    # that builds its tables from words, the table build.
+    return (init_fn, update_fn, chainback_fn, prepare_fn, *make_chains(update_fn, _cb_impl))

@@ -24,9 +24,9 @@ import torch
 from ...configs import CodeSpec, NumericSpec
 from ...utils.bits import unpack_words_to_bits
 from ..acs import _pack_decisions
-from ..branch import packed_transition_table
 from . import _build
-from .kernels import _check_t_real, _state_order_words, acs_smem_bytes, launch_chainback, walk_ref
+from .kernels import (_check_t_real, _state_order_words, acs_smem_bytes, device_table,
+                      launch_chainback, walk_ref)
 
 __all__ = [
     "acs_update_inplace",
@@ -122,7 +122,7 @@ def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: tor
     _build.check_cuda_int32("metrics_pos_sb", metrics_pos_sb, (code.num_states, B))
     _build.check_cuda_int32("symbols_trb", symbols_trb, (Tp, code.R, B))
     dev = metrics_pos_sb.device
-    etab = torch.as_tensor(packed_transition_table(code), device=dev)
+    etab = device_table(code, dev)
     m_out = torch.empty_like(metrics_pos_sb)
     dec = torch.empty((Tp, code.decision_words, B), dtype=torch.int32, device=dev)
     _build.launch(

@@ -16,6 +16,7 @@ length ``>= t_real``; words at steps ``>= t_real`` are undefined.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +41,14 @@ def acs_smem_bytes(code: CodeSpec, inplace: bool) -> int:
     W = code.decision_words
     ints = (S if inplace else 2 * S) + S // 2 + STAGE * code.R
     return 4 * ints + 2 * W * 32
+
+
+@functools.lru_cache(maxsize=None)
+def device_table(code: CodeSpec, device: torch.device) -> torch.Tensor:
+    """``packed_transition_table(code)`` on ``device``, uploaded once per code
+    and device: an upload from pageable host memory at every launch would make
+    the host wait for the stream between the links of a chain."""
+    return torch.as_tensor(packed_transition_table(code), device=device)
 
 
 def _check_t_real(t_real: int, Tp: int) -> int:
@@ -91,7 +100,7 @@ def acs_update_tb(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor
     _build.check_cuda_int32("metrics_sb", metrics_sb, (code.num_states, B))
     _build.check_cuda_int32("symbols_trb", symbols_trb, (Tp, code.R, B))
     dev = metrics_sb.device
-    etab = torch.as_tensor(packed_transition_table(code), device=dev)
+    etab = device_table(code, dev)
     m_out = torch.empty_like(metrics_sb)
     dec = torch.empty((Tp, code.decision_words, B), dtype=torch.int32, device=dev)
     _build.launch(

@@ -47,7 +47,7 @@ def run_phases(jc, jn, sym, num_data_bits):
     j_init, j_update, j_chainback, j_prepare = jdispatch.phase_fns(jc, jn, num_data_bits, B)[:4]
     jm, jw, joff = j_update(j_init(B), j_prepare(jnp.asarray(sym)))
     fns = dispatch.phase_fns(pc, pn, num_data_bits, B, device="cpu")
-    assert len(fns) == 6 and fns[4] is None and fns[5] is None
+    assert len(fns) == 6 and all(callable(f) for f in fns)
     p_init, p_update, p_chainback, p_prepare = fns[:4]
     pm, pw, poff = p_update(p_init(B), p_prepare(sym))
     return (jm, jw, joff, j_chainback(jw)), (pm, pw, poff, p_chainback(pw))
@@ -131,13 +131,13 @@ def test_phase_fns_pair_kernel_family():
 
 
 def test_phase_fns_other_families_wait():
-    """K <= 9, and the in-place family at its batch, are not served yet."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        dispatch.phase_fns(P.VITERBI27, P.soft8_spec(2), 64, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="in-place"):
-        dispatch.phase_fns(P.VITERBI615, P.soft8_spec(6), 64, 256, "cpu")
-    with pytest.raises(NotImplementedError, match="in-place"):
-        dispatch.phase_fns(P.VITERBI615, P.soft8_spec(6), 64, None, "cpu")
+    """K <= 9, and the in-place family at its batch, no longer wait: every
+    family is served with six callables (``test_torch_phase_fns.py`` holds
+    them to the JAX package), in the kernels' own ``[S, B]`` layout."""
+    for code, batch in ((P.VITERBI27, 8), (P.VITERBI615, 256), (P.VITERBI615, None)):
+        fns = dispatch.phase_fns(code, P.soft8_spec(code.R), 64, batch, "cpu")
+        assert len(fns) == 6 and all(callable(f) for f in fns)
+        assert fns[0](2).shape == (code.num_states, 2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             dispatch.phase_fns(P.VITERBI224, P.soft8_spec(2), 64, 8)

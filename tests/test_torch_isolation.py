@@ -26,7 +26,7 @@ def _imported_modules(path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
