@@ -4,7 +4,9 @@
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
 together), holds each of the ten kernels against its plain PyTorch version on
-the card, then drives six paths -- through ``ViterbiDecoder(backend="cuda")``,
+the card (the in-place pair and the tracebacks in every form: K=3..15,
+R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
+tap both register ends, chained halves), then drives six paths -- through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns`` and the benchmark runner -- each with the launch counts
 zeroed just before it and read just after:
 
@@ -171,6 +173,18 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def once_ms(fn) -> float:
+    """One call, no warm-up: the plain versions take seconds and are no
+    yardstick of speed, so one reading of each is enough."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def acs_bound_ms(B, T, code=CODE) -> tuple[float, str]:
     """Least time of one ACS sweep: bytes = symbols in + metrics in and out +
     words out; operations per frame and step = the 2^R penalty sums of R
@@ -214,19 +228,34 @@ def check(name: str, err: int) -> int:
     return err
 
 
-def compare_update(name, fn, ref, args, T):
+# The plain versions take seconds a frame, so a shape that is both compared
+# and timed runs its plain version once: the comparison keeps its inputs and
+# the plain version's time here under (kernel, row key), and ``kernel_row``
+# times the kernel on those inputs.
+COMPARED: dict[tuple, tuple] = {}
+
+
+def timed_plain(ref, args, kwargs, keep):
+    out = []
+    ms = once_ms(lambda: out.append(ref(*args, **kwargs)))
+    if keep is not None:
+        COMPARED[keep] = (args, ms)
+    return out[0]
+
+
+def compare_update(name, fn, ref, args, T, keep=None):
     """Run kernel and plain version on the same inputs; metrics and words
     [:T] must be identical.  Returns (max_abs_err, kernel outputs)."""
     m_k, d_k = fn(*args)
-    m_r, d_r = ref(*args)
+    m_r, d_r = timed_plain(ref, args, {}, keep)
     torch.cuda.synchronize()
     err = max(max_abs_err(m_k, m_r), max_abs_err(d_k[:T], d_r[:T]))
     print(f"{name}: max_abs_err {err}")
     return check(name, err), (m_k, d_k)
 
 
-def compare_walk(name, fn, ref, args, T):
-    bits_k, bits_r = fn(*args), ref(*args)
+def compare_walk(name, fn, ref, args, T, keep=None):
+    bits_k, bits_r = fn(*args), timed_plain(ref, args, {}, keep)
     torch.cuda.synchronize()
     nw = -(-T // 32)
     err = max_abs_err(bits_k[:nw], bits_r[:nw])
@@ -234,12 +263,12 @@ def compare_walk(name, fn, ref, args, T):
     return check(name, err)
 
 
-def compare_large(name, fn, ref, args, kwargs=None):
+def compare_large(name, fn, ref, args, kwargs=None, keep=None):
     """A large-K update and its plain version: metrics, words and offset
     must be identical.  Returns (max_abs_err, kernel outputs)."""
     kwargs = kwargs or {}
     got = fn(*args, **kwargs)
-    want = ref(*args, **kwargs)
+    want = timed_plain(ref, args, kwargs, keep)
     torch.cuda.synchronize()
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
     print(f"{name}: max_abs_err {err} (offset of frame 0: {int(got[-1][0])})")
@@ -252,27 +281,37 @@ def phase_kernels(tag, rng):
     T = CODE.transmit_bits(FRAME_BYTES)
     errs = {k: 0 for k in _build.LAUNCHES}
 
-    def run_pairs(numeric, B, noise, label):
+    def run_pairs(numeric, B, noise, label, timed=()):
+        """All four kernels at one batch; ``timed``: the pair whose timing
+        rows are of this shape."""
         _, sym = noisy_symbols(numeric, B, rng, noise)
         s = trb(sym)
         m0 = metrics0(CODE, numeric, B)
         end = torch.from_numpy(rng.integers(0, CODE.num_states, size=(1, B)).astype(np.int32)).cuda()
+
+        def keep(name):
+            return (name, None) if name in timed else None
+
         e, (_, d) = compare_update(f"acs_update_tb {label}", kernels.acs_update_tb,
-                                   kernels.acs_update_tb_ref, (CODE, numeric, m0, s, T), T)
+                                   kernels.acs_update_tb_ref, (CODE, numeric, m0, s, T), T,
+                                   keep("acs_update_tb"))
         errs["acs_update_tb"] = max(errs["acs_update_tb"], e)
         e = compare_walk(f"chainback_tb {label}", kernels.chainback_tb, kernels.chainback_tb_ref,
-                         (CODE, d, end, T), T)
+                         (CODE, d, end, T), T, keep("chainback_tb"))
         errs["chainback_tb"] = max(errs["chainback_tb"], e)
         e, (_, d) = compare_update(f"acs_update_inplace {label}", inplace.acs_update_inplace,
-                                   inplace.acs_update_inplace_ref, (CODE, numeric, m0, s, T, 0), T)
+                                   inplace.acs_update_inplace_ref, (CODE, numeric, m0, s, T, 0), T,
+                                   keep("acs_update_inplace"))
         errs["acs_update_inplace"] = max(errs["acs_update_inplace"], e)
         e = compare_walk(f"chainback_inplace {label}", inplace.chainback_inplace,
-                         inplace.chainback_inplace_ref, (CODE, d, end, T, 0), T)
+                         inplace.chainback_inplace_ref, (CODE, d, end, T, 0), T,
+                         keep("chainback_inplace"))
         errs["chainback_inplace"] = max(errs["chainback_inplace"], e)
         return s, m0
 
-    run_pairs(soft8, B_TB, 4, f"soft8 B={B_TB}")
-    s, m0 = run_pairs(soft8, B_INPLACE, 4, f"soft8 B={B_INPLACE}")
+    run_pairs(soft8, B_TB, 4, f"soft8 B={B_TB}", ("acs_update_tb", "chainback_tb"))
+    s, m0 = run_pairs(soft8, B_INPLACE, 4, f"soft8 B={B_INPLACE}",
+                      ("acs_update_inplace", "chainback_inplace"))
     run_pairs(soft16_spec(2), 128, 160, "soft16 B=128")
 
     # The in-place pair in two blocks: the second starts at t0 = T1, which is
@@ -315,7 +354,7 @@ def phase_kernels_large(tag, rng, errs):
     m0 = metrics0(cas, soft8, B_CAS_LARGE, state_major=False)
     e, (_, words, _) = compare_large(f"acs_update_large2 cassini soft8 B={B_CAS_LARGE} T={T}",
                                      large_k2.acs_update_large2, large_k2.acs_update_large2_ref,
-                                     (cas, soft8, m0, sym))
+                                     (cas, soft8, m0, sym), keep=("acs_update_large2", None))
     note("acs_update_large2", e)
     # A block of 788 pairs: the second renormalisation follows the last pair,
     # so frame_sub_kernel writes the returned metrics.
@@ -334,7 +373,9 @@ def phase_kernels_large(tag, rng, errs):
                            .astype(np.int32)).cuda()
     w = words.permute(1, 2, 0).contiguous()
     note("chainback_tb", compare_walk(f"chainback_tb cassini B={B_CAS_LARGE}", kernels.chainback_tb,
-                                      kernels.chainback_tb_ref, (cas, w, end, T), T))
+                                      kernels.chainback_tb_ref, (cas, w, end, T), T,
+                                      ("chainback_tb", "k15")))
+    del words, w
     # soft16: int32 storage, no renormalisation; time-major words.
     s16 = soft16_spec(6)
     assert large_k2.renorm_schedule(cas, s16, T) == (torch.int32, 0)
@@ -348,7 +389,8 @@ def phase_kernels_large(tag, rng, errs):
     half = T // 2
     e, _ = compare_large(f"acs_update_large cassini soft8 B={B_CAS_LARGE} T={half}",
                          large_k.acs_update_large, large_k.acs_update_large_ref,
-                         (cas, soft8, m0, sym[:, :half].contiguous()))
+                         (cas, soft8, m0, sym[:, :half].contiguous()),
+                         keep=("acs_update_large", "block"))
     note("acs_update_large", e)
     # ICE K=24 (2^23 states) at B=2, T=7: three pairs and the odd tail.
     ice, s8 = VITERBI224, soft8_spec(2)
@@ -377,13 +419,13 @@ def phase_kernels_large(tag, rng, errs):
     m0 = metrics0(cas, soft8, B_CAS_INPLACE)
     e, (_, d) = compare_update(f"acs_update_inplace cassini B={B_CAS_INPLACE}",
                                inplace.acs_update_inplace, inplace.acs_update_inplace_ref,
-                               (cas, soft8, m0, s, T, 0), T)
+                               (cas, soft8, m0, s, T, 0), T, ("acs_update_inplace", "k15"))
     note("acs_update_inplace", e)
     end = torch.zeros((1, B_CAS_INPLACE), dtype=torch.int32, device="cuda")
     note("chainback_inplace", compare_walk(f"chainback_inplace cassini B={B_CAS_INPLACE}",
                                            inplace.chainback_inplace,
                                            inplace.chainback_inplace_ref,
-                                           (cas, d, end, T, 0), T))
+                                           (cas, d, end, T, 0), T, ("chainback_inplace", "k15")))
     torch.cuda.empty_cache()
     print(f"[{tag}] large-K kernels and K=15 shapes vs plain versions: all bit-identical")
 
@@ -400,11 +442,12 @@ def phase_kernels_quad(tag, rng, errs):
     def note(name, e):
         errs[name] = max(errs[name], e)
 
-    def three(label, code, numeric, m, sym, leads=(ICE_LEAD4, ICE_LEAD8)):
+    def three(label, code, numeric, m, sym, leads=(ICE_LEAD4, ICE_LEAD8), timed=False):
         out = {}
         for name, lead in zip(forms, ((), (leads[0],), (leads[1],))):
             e, got = compare_large(f"{name} {label}", getattr(large_k4, name),
-                                   getattr(large_k4, name + "_ref"), (code, numeric, m, sym, *lead))
+                                   getattr(large_k4, name + "_ref"), (code, numeric, m, sym, *lead),
+                                   keep=(name, None) if timed else None)
             note(name, e)
             out[name] = got[0]
             del got
@@ -415,7 +458,8 @@ def phase_kernels_quad(tag, rng, errs):
     _, sym = noisy_symbols(s8, B_ICE, rng, 3, ice, ICE_BYTES)
     T = sym.shape[1]
     assert large_k4.renorm_schedule4(ice, s8, T)[1] == 0
-    three(f"ice soft8 B={B_ICE} T={T}", ice, s8, metrics0(ice, s8, B_ICE, state_major=False), sym)
+    three(f"ice soft8 B={B_ICE} T={T}", ice, s8, metrics0(ice, s8, B_ICE, state_major=False), sym,
+          timed=True)
     # Remainders 1 and 2 (T=87 has 3) from lifted metrics.
     m_lift = metrics0(ice, s8, 2, state_major=False) + torch.randint(
         0, 9, (2, ice.num_states), dtype=torch.int32, device="cuda")
@@ -462,6 +506,98 @@ def phase_kernels_quad(tag, rng, errs):
           f"all bit-identical")
 
 
+def phase_kernels_inplace_forms(tag, rng, errs):
+    """The in-place ACS kernel's forms (a warp a frame up to K=9, a block a
+    frame above; the complement and the generic
+    penalty look-up) and both traceback forms (staged up to K=9, candidate
+    fetches above), each against its plain version on random symbols and
+    random entry metrics (so not in state order): K=9 soft16 at B=512, every
+    kind of ``t0``, ``t_real`` odd / not a multiple of 32 / below 32, batches
+    that do not fill a warp's or a block's frames, K=3..13, R=1..6, codes that
+    do not tap both register ends, and two chained halves against the whole."""
+    def note(name, e):
+        errs[name] = max(errs[name], e)
+
+    def rand_inputs(code, numeric, B, T):
+        sym = torch.from_numpy(rng.integers(numeric.soft_low, numeric.soft_high + 1,
+                                            size=(T, code.R, B)).astype(np.int32)).cuda()
+        m = torch.from_numpy(rng.integers(0, 60, size=(code.num_states, B)).astype(np.int32)).cuda()
+        end = torch.from_numpy(rng.integers(0, code.num_states, size=(1, B))
+                               .astype(np.int32)).cuda()
+        return sym, m, end
+
+    def one(code, numeric, B, T, t_real, t0):
+        sym, m, end = rand_inputs(code, numeric, B, T)
+        label = f"{code.name} {numeric.name} B={B} T={T} t_real={t_real} t0={t0}"
+        e, (_, d) = compare_update(f"acs_update_inplace {label}", inplace.acs_update_inplace,
+                                   inplace.acs_update_inplace_ref,
+                                   (code, numeric, m, sym, t_real, t0), t_real)
+        note("acs_update_inplace", e)
+        note("chainback_inplace", compare_walk(
+            f"chainback_inplace {label}", inplace.chainback_inplace,
+            inplace.chainback_inplace_ref, (code, d, end, t_real, t0), t_real))
+        note("chainback_tb", compare_walk(
+            f"chainback_tb {label}", kernels.chainback_tb, kernels.chainback_tb_ref,
+            (code, d, end, t_real), t_real))
+
+    def halves(code, numeric, B, T, t0):
+        sym, m, end = rand_inputs(code, numeric, B, T)
+        T1 = T // 2 - 1
+        mw, dw = inplace.acs_update_inplace(code, numeric, m, sym, T, t0)
+        m1, d1 = inplace.acs_update_inplace(code, numeric, m, sym[:T1].contiguous(), T1, t0)
+        m2, d2 = inplace.acs_update_inplace(code, numeric, m1, sym[T1:].contiguous(), T - T1,
+                                            t0 + T1)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(m2, mw), max_abs_err(torch.cat([d1[:T1], d2[:T - T1]]), dw[:T]))
+        print(f"acs_update_inplace {code.name} B={B} two halves (t0={t0}, {t0 + T1}) vs the whole "
+              f"frame: max_abs_err {e}")
+        note("acs_update_inplace", check(f"{code.name} chained halves", e))
+        pad = torch.zeros((-T1 % 32 + 32, *d2.shape[1:]), dtype=torch.int32, device="cuda")
+        whole = dispatch.unpack_bit_words(inplace.chainback_inplace(code, dw, end, T, t0), T)
+        window = dispatch.unpack_bit_words(
+            inplace.chainback_inplace(code, torch.cat([d2[:T - T1], pad]), end, T - T1, t0 + T1),
+            T - T1)
+        e = int((whole[:, T1:] != window).sum())
+        print(f"chainback_inplace {code.name} B={B} window t0={t0 + T1} vs the whole walk: "
+              f"{e} bits differ")
+        note("chainback_inplace", check(f"{code.name} chained walk", e))
+
+    k7 = CODE
+    one(VITERBI29, soft16_spec(2), 512, 1030, 1030, 3)
+    for t0 in (0, 1, 5, k7.K - 2, k7.K - 1):
+        one(k7, soft8_spec(2), 513, 320, 299, t0)
+    one(k7, soft8_spec(2), 33, 64, 31, 4)
+    one(k7, soft8_spec(2), 9000, 96, 77, 2)     # several warps a scheduler
+    one(VITERBI47, soft8_spec(4), 9200, 96, 96, 1)
+    one(VITERBI49, soft8_spec(4), 130, 200, 199, 7)
+    one(CodeSpec("k3r2", 3, 2, (0o7, 0o5)), soft8_spec(2), 33, 100, 99, 1)
+    one(CodeSpec("k5r2", 5, 2, (0o23, 0o35)), soft8_spec(2), 9100, 70, 45, 3)
+    one(CodeSpec("k6r2", 6, 2, (0o53, 0o75)), soft8_spec(2), 33, 100, 100, 4)
+    one(CodeSpec("k8r3", 8, 3, (0o247, 0o371, 0o225)), soft8_spec(3), 130, 150, 149, 6)
+    one(CodeSpec("k11r2", 11, 2, (0o3345, 0o2671)), soft8_spec(2), 33, 200, 199, 9)
+    one(CodeSpec("k13r1", 13, 1, (0o16731,)), soft8_spec(1), 9, 150, 131, 12)
+    one(CodeSpec("k12r6", 12, 6, (0o6731, 0o5247, 0o7153, 0o4657, 0o5735, 0o7461)),
+        soft16_spec(6), 8, 100, 97, 5)
+    # Polynomials that tap neither register end: the generic penalty look-up.
+    one(CodeSpec("k7oneend", 7, 2, (0o155, 0o056)), soft8_spec(2), 130, 150, 149, 5)
+    one(CodeSpec("k9oneend", 9, 3, (0o557, 0o256, 0o711)), soft8_spec(3), 33, 150, 150, 2)
+    one(CodeSpec("k10oneend", 10, 2, (0o1167, 0o0546)), soft8_spec(2), 17, 150, 141, 8)
+    halves(VITERBI29, soft8_spec(2), 130, 301, 3)
+    halves(CodeSpec("k11r2", 11, 2, (0o3345, 0o2671)), soft8_spec(2), 9, 150, 7)
+    # What the Python side says of the launch is what the launcher does.
+    fns = _build.library()
+    for code in (k7, VITERBI47, VITERBI29, VITERBI49, VITERBI615,
+                 CodeSpec("k5r2", 5, 2, (0o23, 0o35)), CodeSpec("k10oneend", 10, 2, (0o1167, 0o0546))):
+        got = fns["viterbi_acs_inplace_smem"](code.K, code.R, int(inplace.complement_form(code)))
+        want = inplace.inplace_smem_bytes(code)
+        if got != want:
+            raise SystemExit(f"FAIL: {code.name}: the launcher takes {got} bytes of shared "
+                             f"memory, ops/cuda/inplace.py says {want}")
+    torch.cuda.empty_cache()
+    print(f"[{tag}] in-place ACS forms and both traceback forms vs plain versions: all "
+          f"bit-identical")
+
+
 class inplace_off:
     """``KA9Q_TORCH_INPLACE=0`` inside the block, the earlier value after."""
 
@@ -491,7 +627,7 @@ def phase_kernels_tb2(tag, rng, errs):
     [:t_real] identical): the tb2 path's own shape, an odd ``t_real``, one
     that ends inside a 32-step stage of symbols, K=9 soft16, both R=4 codes,
     and a K=5 code at a small batch."""
-    def one(code, numeric, B, n_bytes, noise, t_cuts=(0,)):
+    def one(code, numeric, B, n_bytes, noise, t_cuts=(0,), keep=None):
         _, sym = noisy_symbols(numeric, B, rng, noise, code, n_bytes)
         s = trb(sym)
         T = s.shape[0]
@@ -502,7 +638,7 @@ def phase_kernels_tb2(tag, rng, errs):
             label = f"acs_update_tb2 {code.name} {numeric.name} B={B} T={T} t_real={t}"
             e, (m_k, d_k) = compare_update(label, kernels2.acs_update_tb2,
                                            kernels2.acs_update_tb2_ref,
-                                           (code, numeric, m0, s, t), t)
+                                           (code, numeric, m0, s, t), t, None if cut else keep)
             m_t, d_t = kernels.acs_update_tb(code, numeric, m0, s, t)
             torch.cuda.synchronize()
             e = max(e, check(label + " vs the acs_update_tb kernel",
@@ -510,8 +646,8 @@ def phase_kernels_tb2(tag, rng, errs):
             errs["acs_update_tb2"] = max(errs["acs_update_tb2"], e)
 
     # T = 8198: 8197 is odd (one step A alone); 8185 ends 25 steps into a stage.
-    one(CODE, soft8_spec(2), B_TB2, FRAME_BYTES, 4, (0, 1, 13))
-    one(VITERBI29, soft16_spec(2), B_TB2, 512, 160)
+    one(CODE, soft8_spec(2), B_TB2, FRAME_BYTES, 4, (0, 1, 13), keep=("acs_update_tb2", None))
+    one(VITERBI29, soft16_spec(2), B_TB2, 512, 160, keep=("acs_update_tb2", "k9"))
     one(VITERBI47, soft8_spec(4), B_TB2, 1024, 4)
     one(VITERBI49, soft8_spec(4), B_TB2, 512, 4, (0, 1))
     one(CodeSpec("k5r2", 5, 2, (0o23, 0o35)), soft8_spec(2), 33, 8, 3, (0, 1))
@@ -763,17 +899,47 @@ def phase_decode(tag, rng):
     return launches
 
 
-def kernel_row(tag, rows, name, fn, ref, args, shape, bnd, iters, key=None, kwargs=None):
+# The times of the kernels that this file's in-place and traceback kernels
+# replaced (the same shapes, the same card and power limit), printed in
+# brackets beside the new ones.
+OLD_MS = {
+    ("acs_update_inplace", None): 2.8251, ("acs_update_inplace", "k15"): 31.7151,
+    ("chainback_inplace", None): 0.5932, ("chainback_inplace", "k15"): 1.1786,
+    ("chainback_tb", None): 0.4408, ("chainback_tb", "k15"): 0.6197,
+    # K=9 B=512 was timed as phases only (update, chainback)
+    ("acs_update_inplace", "k9"): 2.1735, ("chainback_inplace", "k9"): 2.1021,
+}
+
+
+def compared_args(name, key=None):
+    """The inputs on which ``name`` was held against its plain version at the
+    shape of its timing row ``key``."""
+    return COMPARED[(name, key)][0]
+
+
+def kernel_row(tag, rows, name, fn, ref, args, shape, bnd, iters, key=None, kwargs=None,
+               steps=None):
+    """Time the kernel on ``args``.  Where these are the inputs of a
+    comparison (``compared_args``), the plain version's time is that run's;
+    else the plain version runs here, once."""
     kwargs = kwargs or {}
     ms = timed_ms(lambda: fn(*args, **kwargs), iters)
-    plain_ms = timed_ms(lambda: ref(*args, **kwargs), 1)
+    kept = COMPARED.pop((name, key), None)
+    if kept is not None and kept[0] is args:
+        plain_ms = kept[1]
+    else:
+        plain_ms = once_ms(lambda: ref(*args, **kwargs))
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
     if key:
         rows.setdefault(name, {})[key] = row
     else:
         rows[name] = row
-    print(f"[{tag}] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-          f"bound {bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound")
+    old = OLD_MS.get((name, key))
+    print(f"[{tag}] {name} {shape}: kernel {ms:.4f} ms"
+          + (f" [{old:.4f}]" if old else "")
+          + (f" = {1e6 * ms / steps:.1f} ns a step" if steps else "")
+          + f", plain {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+          f"{100 * bnd[0] / ms:.1f}% of bound")
     return ms
 
 
@@ -809,26 +975,37 @@ def phase_timing(tag, rng):
     T = CODE.transmit_bits(FRAME_BYTES)
     rows = {}
 
-    for B, pair in ((B_TB, "tb"), (B_INPLACE, "inplace")):
-        _, sym = noisy_symbols(numeric, B, rng, 4)
-        s = trb(sym)
-        m0 = metrics0(CODE, numeric, B)
-        end = torch.zeros((1, B), dtype=torch.int32, device="cuda")
-        shape = f"K=7 B={B} T={T}"
-        if pair == "tb":
-            _, d = kernels.acs_update_tb(CODE, numeric, m0, s, T)
-            kernel_row(tag, rows, "acs_update_tb", kernels.acs_update_tb, kernels.acs_update_tb_ref,
-                       (CODE, numeric, m0, s, T), shape, acs_bound_ms(B, T), 20)
-            kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
-                       (CODE, d, end, T), shape, chainback_bound_ms(B, T, False), 20)
-        else:
-            _, d = inplace.acs_update_inplace(CODE, numeric, m0, s, T, 0)
-            kernel_row(tag, rows, "acs_update_inplace", inplace.acs_update_inplace,
-                       inplace.acs_update_inplace_ref, (CODE, numeric, m0, s, T, 0), shape,
-                       acs_bound_ms(B, T), 20)
-            kernel_row(tag, rows, "chainback_inplace", inplace.chainback_inplace,
-                       inplace.chainback_inplace_ref, (CODE, d, end, T, 0), shape,
-                       chainback_bound_ms(B, T, True), 20)
+    shape = f"K=7 B={B_TB} T={T}"
+    kernel_row(tag, rows, "acs_update_tb", kernels.acs_update_tb, kernels.acs_update_tb_ref,
+               compared_args("acs_update_tb"), shape, acs_bound_ms(B_TB, T), 20)
+    kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
+               compared_args("chainback_tb"), shape, chainback_bound_ms(B_TB, T, False), 20, steps=T)
+    shape = f"K=7 B={B_INPLACE} T={T}"
+    kernel_row(tag, rows, "acs_update_inplace", inplace.acs_update_inplace,
+               inplace.acs_update_inplace_ref, compared_args("acs_update_inplace"), shape,
+               acs_bound_ms(B_INPLACE, T), 20, steps=T)
+    kernel_row(tag, rows, "chainback_inplace", inplace.chainback_inplace,
+               inplace.chainback_inplace_ref, compared_args("chainback_inplace"), shape,
+               chainback_bound_ms(B_INPLACE, T, True), 20, steps=T)
+    # The in-place pair at K=9 (VITERBI29 soft16, 512-byte frames), B=512.
+    k9, s16, B = VITERBI29, soft16_spec(2), B_INPLACE
+    _, sym = noisy_symbols(s16, B, rng, 160, k9, 512)
+    s, m0 = trb(sym), metrics0(k9, s16, B)
+    T9 = s.shape[0]
+    end = torch.zeros((1, B), dtype=torch.int32, device="cuda")
+    shape = f"K=9 soft16 B={B} T={T9}"
+    _, (_, d) = compare_update(f"acs_update_inplace {shape}", inplace.acs_update_inplace,
+                               inplace.acs_update_inplace_ref, (k9, s16, m0, s, T9, 0), T9,
+                               ("acs_update_inplace", "k9"))
+    compare_walk(f"chainback_inplace {shape}", inplace.chainback_inplace,
+                 inplace.chainback_inplace_ref, (k9, d, end, T9, 0), T9, ("chainback_inplace", "k9"))
+    del d
+    kernel_row(tag, rows, "acs_update_inplace", inplace.acs_update_inplace,
+               inplace.acs_update_inplace_ref, compared_args("acs_update_inplace", "k9"), shape,
+               acs_bound_ms(B, T9, k9), 20, key="k9", steps=T9)
+    kernel_row(tag, rows, "chainback_inplace", inplace.chainback_inplace,
+               inplace.chainback_inplace_ref, compared_args("chainback_inplace", "k9"), shape,
+               chainback_bound_ms(B, T9, True), 20, key="k9", steps=T9)
     decoder_phases(tag, CODE, numeric, B_INPLACE, FRAME_BYTES, rng,
                    f"K=7 ({'in-place' if dispatch.use_inplace(CODE, B_INPLACE, 'cuda') else 'state-order'})")
     return rows
@@ -842,10 +1019,10 @@ def phase_timing_large(tag, rng, rows):
     cas, soft8 = VITERBI615, soft8_spec(6)
     T = cas.transmit_bits(CAS_BYTES)
     B = B_CAS_LARGE
-    _, sym = noisy_symbols(soft8, B, rng, 3, cas, CAS_BYTES)
-    m0 = metrics0(cas, soft8, B, state_major=False)
+    args = compared_args("acs_update_large2")
+    _, _, m0, sym = args
     ms = kernel_row(tag, rows, "acs_update_large2", large_k2.acs_update_large2,
-                    large_k2.acs_update_large2_ref, (cas, soft8, m0, sym),
+                    large_k2.acs_update_large2_ref, args,
                     f"cassini B={B} T={T}", acs_bound_ms(B, T, cas), 10)
     streamed = (T // 2) * 2 * B * cas.num_states * 4
     print(f"[{tag}] acs_update_large2 cassini B={B}: metric traffic of one read and one write "
@@ -857,30 +1034,23 @@ def phase_timing_large(tag, rng, rows):
                acs_bound_ms(B, 1, cas), 50)
     half = T // 2
     ms = kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
-                    large_k.acs_update_large_ref, (cas, soft8, m0, sym[:, :half].contiguous()),
+                    large_k.acs_update_large_ref, compared_args("acs_update_large", "block"),
                     f"cassini B={B} T={half}", acs_bound_ms(B, half, cas), 5, key="block")
     print(f"[{tag}] acs_update_large cassini B={B}: {1e3 * ms / half:.3f} us a step")
 
-    _, words, _ = large_k2.acs_update_large2(cas, soft8, m0, sym)
-    w = words.permute(1, 2, 0).contiguous()
-    end = torch.zeros((1, B), dtype=torch.int32, device="cuda")
     kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
-               (cas, w, end, T), f"cassini B={B} T={T}", chainback_bound_ms(B, T, False), 10,
-               key="k15")
-    del words, w
+               compared_args("chainback_tb", "k15"), f"cassini B={B} T={T}",
+               chainback_bound_ms(B, T, False), 10, key="k15", steps=T)
     Bi = B_CAS_INPLACE
-    _, sym = noisy_symbols(soft8, Bi, rng, 3, cas, CAS_BYTES)
-    s = trb(sym)
-    m0 = metrics0(cas, soft8, Bi)
-    _, d = inplace.acs_update_inplace(cas, soft8, m0, s, T, 0)
-    end = torch.zeros((1, Bi), dtype=torch.int32, device="cuda")
+    args = compared_args("acs_update_inplace", "k15")
+    sym = args[3].permute(2, 0, 1).contiguous()  # [T, R, B] -> [B, T, R]
     kernel_row(tag, rows, "acs_update_inplace", inplace.acs_update_inplace,
-               inplace.acs_update_inplace_ref, (cas, soft8, m0, s, T, 0),
-               f"cassini B={Bi} T={T}", acs_bound_ms(Bi, T, cas), 3, key="k15")
+               inplace.acs_update_inplace_ref, args,
+               f"cassini B={Bi} T={T}", acs_bound_ms(Bi, T, cas), 3, key="k15", steps=T)
     kernel_row(tag, rows, "chainback_inplace", inplace.chainback_inplace,
-               inplace.chainback_inplace_ref, (cas, d, end, T, 0), f"cassini B={Bi} T={T}",
-               chainback_bound_ms(Bi, T, True), 10, key="k15")
-    del d
+               inplace.chainback_inplace_ref, compared_args("chainback_inplace", "k15"),
+               f"cassini B={Bi} T={T}", chainback_bound_ms(Bi, T, True), 10, key="k15", steps=T)
+    del args
     # The pair kernel at the in-place route's batch, for the routing choice
     # (dispatch routes B >= 128 to the in-place pair, as the JAX package does).
     mb = metrics0(cas, soft8, Bi, state_major=False)
@@ -898,16 +1068,15 @@ def phase_timing_quad(tag, rng, rows):
     T=87), the pair kernel on the same steps beside them, and the phases of
     the ICE decoder and of ``phase_fns``."""
     ice, s8, B = VITERBI224, soft8_spec(2), B_ICE
-    _, sym = noisy_symbols(s8, B, rng, 3, ice, ICE_BYTES)
+    _, _, m0, sym = compared_args("acs_update_large4")
     T = sym.shape[1]
-    m0 = metrics0(ice, s8, B, state_major=False)
     shape = f"ice B={B} T={T}"
     quad_traffic = 2 * B * ice.num_states * 4
     for name, lead, bnd in (
             ("acs_update_large4", None, acs_bound_ms(B, T, ice)),
             ("acs_update_large4_fields", ICE_LEAD4, fields_bound_ms(B, T, ICE_LEAD4, ice)),
             ("acs_update_large4_fields8", ICE_LEAD8, fields_bound_ms(B, T, ICE_LEAD8, ice))):
-        args = (ice, s8, m0, sym) if lead is None else (ice, s8, m0, sym, lead)
+        args = compared_args(name)
         label = shape if lead is None else f"{shape} lead={lead}"
         ms = kernel_row(tag, rows, name, getattr(large_k4, name), getattr(large_k4, name + "_ref"),
                         args, label, bnd, 5)
@@ -989,14 +1158,13 @@ def phase_timing_tb2(tag, rng, rows):
     in the kernels' own layout: the in-place family at the runner's batches
     (beside the decoder's phases at K=7 and Cassini, whose difference is the
     layout copies), and the K <= 9 family with the in-place route off."""
-    for code, n_bytes, key in ((CODE, FRAME_BYTES, None), (VITERBI29, 512, "k9")):
-        numeric, B = soft8_spec(code.R), B_TB2
-        _, sym = noisy_symbols(numeric, B, rng, 4, code, n_bytes)
-        s, m0 = trb(sym), metrics0(code, numeric, B)
-        T = s.shape[0]
+    for key in (None, "k9"):  # K=7 soft8 1024-byte frames, K=9 soft16 512-byte frames
+        args = compared_args("acs_update_tb2", key)
+        code, numeric, m0, s, T = args
+        B = B_TB2
         shape = f"K={code.K} B={B} T={T}"
         kernel_row(tag, rows, "acs_update_tb2", kernels2.acs_update_tb2,
-                   kernels2.acs_update_tb2_ref, (code, numeric, m0, s, T), shape,
+                   kernels2.acs_update_tb2_ref, args, shape,
                    acs_bound_ms(B, T, code), 10, key=key)
         tb_ms = timed_ms(lambda: kernels.acs_update_tb(code, numeric, m0, s, T), 10)
         ip_ms = timed_ms(lambda: inplace.acs_update_inplace(code, numeric, m0, s, T, 0), 10)
@@ -1035,15 +1203,33 @@ def main() -> int:
           f"in parallel), {time.perf_counter() - t0:.2f} s to load; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     rng = np.random.default_rng(SEED)
+    lap = [time.perf_counter()]
+
+    def done(what):
+        now = time.perf_counter()
+        print(f"[{tag}] -- {what}: {now - lap[0]:.1f} s")
+        lap[0] = now
+
     errs = phase_kernels(tag, rng)
+    done("K=7 comparisons")
     phase_kernels_large(tag, rng, errs)
+    done("large-K and K=15 comparisons")
     phase_kernels_quad(tag, rng, errs)
+    done("depth-4 comparisons")
     phase_kernels_tb2(tag, rng, errs)
+    done("depth-2 comparisons")
+    phase_kernels_inplace_forms(tag, rng, errs)
+    done("in-place forms comparisons")
     launches = phase_decode(tag, rng)
+    done("the six paths")
     rows = phase_timing(tag, rng)
+    done("K=7 and K=9 timing")
     phase_timing_large(tag, rng, rows)
+    done("Cassini timing")
     phase_timing_quad(tag, rng, rows)
+    done("ICE timing")
     phase_timing_tb2(tag, rng, rows)
+    done("depth-2 and phase_fns timing")
     print(f"[{tag}] chip_smoke: {time.perf_counter() - t0:.1f} s in all")
 
     line = {"kernels": [

@@ -25,7 +25,7 @@ import time
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "library", "build_seconds", "launch",
+__all__ = ["LAUNCHES", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
            "check_cuda_int32"]
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
@@ -33,8 +33,10 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("viterbi_small.cu", "viterbi_large.cu", "viterbi_large4.cu")
 HEADERS = ("viterbi_large.cuh",)  # included by the sources; part of the cache key
+# -split-compile 0: the optimiser works on a source's kernels in parallel, on
+# all cores (viterbi_small.cu instantiates some forty).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-split-compile", "0", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: dict[str, int] = {
     "acs_update_tb": 0,
@@ -57,7 +59,8 @@ _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "viterbi_acs_tb": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_tb2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_inplace_smem": (_I, _I, _I),
     "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),
     "viterbi_chainback_inplace": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -92,11 +95,16 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def library_paths() -> list[pathlib.Path]:
+    """Where the shared library of each source is (or will be) cached."""
+    return [BUILD_DIR / f"lib{pathlib.Path(src).stem}_{_source_hash()}.so" for src in SOURCES]
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> dict[str, ctypes._CFuncPtr]:
     """Compile (if not cached) and load the kernel libraries; returns the
     extern "C" launchers by name."""
-    sos = [BUILD_DIR / f"lib{pathlib.Path(src).stem}_{_source_hash()}.so" for src in SOURCES]
+    sos = library_paths()
     if not all(so.exists() for so in sos):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmps = [so.with_suffix(f".{os.getpid()}.tmp") for so in sos]

@@ -59,15 +59,16 @@ __all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace",
 
 
 def fits_shared(code: CodeSpec, device: torch.device) -> bool:
-    """Whether one in-place ACS block's shared memory fits the card of
-    ``device`` (``torch.cuda.get_device_properties``; the block also needs at
-    most 1024 threads, which ``acs_threads`` in the source never exceeds).
+    """Whether one in-place ACS block's shared memory
+    (``inplace.inplace_smem_bytes``: what the launcher in the source asks for)
+    fits the card of ``device`` (``torch.cuda.get_device_properties``; the
+    block also needs at most 1024 threads, which the launcher never exceeds).
     The plain versions that serve CPU tensors have no such limit."""
     if device.type != "cuda":
         return True
     props = torch.cuda.get_device_properties(device)
     cap = getattr(props, "shared_memory_per_block_optin", props.shared_memory_per_block)
-    return kernels.acs_smem_bytes(code, True) <= cap
+    return inplace.inplace_smem_bytes(code) <= cap
 
 
 def supports(code: CodeSpec) -> bool:

@@ -33,14 +33,14 @@ __all__ = ["acs_update_tb", "acs_update_tb_ref", "chainback_tb", "chainback_tb_r
 STAGE = 32  # symbol steps staged per shared-memory refill (kStage in the source)
 
 
-def acs_smem_bytes(code: CodeSpec, inplace: bool) -> int:
-    """Dynamic shared memory of one ACS block (the carve-up of ``carve`` in
-    the source): metrics (two buffers, or one in place), the packed
-    transition table, the staged symbols and two steps of decision bytes."""
+def acs_smem_bytes(code: CodeSpec) -> int:
+    """Dynamic shared memory of one ``acs_tb_kernel`` block (the carve-up of
+    ``carve`` in the source): two metric buffers, the packed transition
+    table, the staged symbols and two steps of decision bytes.  The in-place
+    kernel's is ``inplace.inplace_smem_bytes``."""
     S = code.num_states
     W = code.decision_words
-    ints = (S if inplace else 2 * S) + S // 2 + STAGE * code.R
-    return 4 * ints + 2 * W * 32
+    return 4 * (2 * S + S // 2 + STAGE * code.R) + 2 * W * 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,7 +107,7 @@ def acs_update_tb(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor
         "acs_update_tb", "viterbi_acs_tb", dev,
         metrics_sb.data_ptr(), symbols_trb.data_ptr(), etab.data_ptr(), m_out.data_ptr(),
         dec.data_ptr(), code.K, code.R, numeric.soft_low,
-        numeric.soft_high + numeric.soft_low, B, t_real, acs_smem_bytes(code, False))
+        numeric.soft_high + numeric.soft_low, B, t_real, acs_smem_bytes(code))
     return m_out, dec
 
 

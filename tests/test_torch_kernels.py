@@ -143,11 +143,18 @@ def test_rot_perm_matches_and_inverts():
 
 
 def test_smem_budget_formula():
-    """One K=7 block: two metric buffers (or one in place), the table, 32
-    staged steps of symbols and two steps of decision bytes."""
+    """One K=7 state-order block: two metric buffers, the table, 32 staged
+    steps of symbols and two steps of decision bytes.  One K=7 in-place block
+    at B=512: four warps of one frame, each with two penalty tables of 30
+    rows of 2^R + 1 words and two stages of symbols; Cassini: a frame's
+    metrics, two tables of 32 rows of 65 words, two stages of symbols and the
+    pattern bytes of its 14 phases."""
     pc = ported(J.VITERBI27, J.soft8_spec(2))[0]
-    assert pk.acs_smem_bytes(pc, False) == 4 * (128 + 32 + 64) + 128
-    assert pk.acs_smem_bytes(pc, True) == 4 * (64 + 32 + 64) + 128
+    assert pk.acs_smem_bytes(pc) == 4 * (128 + 32 + 64) + 128
+    assert pip.inplace_warps_per_block(pc) == 4
+    assert pip.inplace_smem_bytes(pc) == 4 * 4 * (2 * 30 * 5 + 2 * 32 * 2)
+    cas = ported(J.VITERBI615, J.soft8_spec(6))[0]
+    assert pip.inplace_smem_bytes(cas) == 4 * (16384 + 2 * 32 * 65 + 2 * 32 * 6 + 512) + 14 * 8192
 
 
 def test_kernel_checks_refuse_cpu_and_wrong_inputs():
@@ -212,3 +219,74 @@ def test_cuda_chainback_inplace(cuda_device, t0):
     nw = -(-T // 32)
     assert torch.equal(pip.chainback_inplace(pc, d, end, T, t0)[:nw],
                        pip.chainback_inplace_ref(pc, d, end, T, t0)[:nw])
+
+
+# The forms of the in-place ACS kernel (a warp a frame up to K=9, with one or
+# more frames a warp; a block a frame above; complement and generic penalty
+# look-up) and of the traceback kernel (staged, or candidate fetches from
+# device memory), on random symbols and random entry metrics.
+FORM_CASES = [
+    # K, R, polys, spec, B, T, t_real, t0
+    pytest.param(9, 2, J.VITERBI29.polys, "soft16_spec", 512, 700, 700, 3, id="k9-soft16-B512"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 513, 320, 299, 0, id="k7-B513-t0=0"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 513, 320, 299, 1, id="k7-B513-t0=1"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 513, 320, 299, 5, id="k7-B513-t0=K-2"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 513, 320, 299, 6, id="k7-B513-t0=K-1"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 33, 64, 31, 4, id="k7-B33-t_real<32"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 9000, 96, 77, 2, id="k7-B9000"),
+    pytest.param(7, 4, J.VITERBI47.polys, "soft8_spec", 9200, 96, 96, 1, id="k7r4-B9200"),
+    pytest.param(3, 2, (0o7, 0o5), "soft8_spec", 33, 100, 99, 1, id="k3"),
+    pytest.param(5, 2, (0o23, 0o35), "soft8_spec", 9100, 70, 45, 3, id="k5-B9100"),
+    pytest.param(6, 2, (0o53, 0o75), "soft8_spec", 33, 100, 100, 4, id="k6"),
+    pytest.param(11, 2, (0o3345, 0o2671), "soft8_spec", 33, 200, 199, 9, id="k11"),
+    pytest.param(13, 1, (0o16731,), "soft8_spec", 9, 150, 131, 12, id="k13r1"),
+    pytest.param(7, 2, (0o155, 0o056), "soft8_spec", 130, 150, 149, 5, id="k7-one-end"),
+    pytest.param(10, 2, (0o1167, 0o0546), "soft8_spec", 17, 150, 141, 8, id="k10-one-end"),
+]
+
+
+def _form_inputs(K, R, polys, spec, B, T, seed=11):
+    from ka9q_viterbi_comparison_tpu_torch import configs as pcfg
+    pc = code_from_fields(f"k{K}r{R}", K, R, tuple(polys))
+    pn = getattr(pcfg, spec)(R)
+    rng = np.random.default_rng(seed)
+    sym = rng.integers(pn.soft_low, pn.soft_high + 1, size=(T, R, B)).astype(np.int32)
+    m = rng.integers(0, 60, size=(pc.num_states, B)).astype(np.int32)
+    end = rng.integers(0, pc.num_states, size=(1, B)).astype(np.int32)
+    return pc, pn, torch.from_numpy(sym).cuda(), torch.from_numpy(m).cuda(), \
+        torch.from_numpy(end).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,polys,spec,B,T,t_real,t0", FORM_CASES)
+def test_cuda_inplace_forms(cuda_device, K, R, polys, spec, B, T, t_real, t0):
+    pc, pn, sym, m, end = _form_inputs(K, R, polys, spec, B, T)
+    km, kd = pip.acs_update_inplace(pc, pn, m, sym, t_real, t0)
+    rm, rd = pip.acs_update_inplace_ref(pc, pn, m, sym, t_real, t0)
+    assert torch.equal(km, rm) and torch.equal(kd[:t_real], rd[:t_real])
+    nw = -(-t_real // 32)
+    assert torch.equal(pip.chainback_inplace(pc, kd, end, t_real, t0)[:nw],
+                       pip.chainback_inplace_ref(pc, rd, end, t_real, t0)[:nw])
+    assert torch.equal(pk.chainback_tb(pc, kd, end, t_real)[:nw],
+                       pk.chainback_tb_ref(pc, rd, end, t_real)[:nw])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,polys,B", [(9, J.VITERBI29.polys, 130), (11, (0o3345, 0o2671), 9)],
+                         ids=["k9", "k11"])
+def test_cuda_inplace_halves_equal_whole(cuda_device, K, polys, B):
+    T, T1, t0 = 301, 149, 3
+    pc, pn, sym, m, end = _form_inputs(K, 2, polys, "soft8_spec", B, T)
+    mw, dw = pip.acs_update_inplace(pc, pn, m, sym, T, t0)
+    m1, d1 = pip.acs_update_inplace(pc, pn, m, sym[:T1].contiguous(), T1, t0)
+    m2, d2 = pip.acs_update_inplace(pc, pn, m1, sym[T1:].contiguous(), T - T1, t0 + T1)
+    assert torch.equal(m2, mw) and torch.equal(torch.cat([d1, d2]), dw)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_geometry_is_what_python_says(cuda_device):
+    fns = _build.library()
+    for jc in (J.VITERBI27, J.VITERBI47, J.VITERBI29, J.VITERBI615):
+        pc = code_from_fields(jc.name, jc.K, jc.R, jc.polys)
+        assert fns["viterbi_acs_inplace_smem"](pc.K, pc.R, int(pip.complement_form(pc))) \
+            == pip.inplace_smem_bytes(pc)
