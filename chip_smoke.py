@@ -13,15 +13,18 @@ zeroed just before it and read just after:
 * VITERBI27 (K=7, r=1/2) soft8, 1024-byte frames: B=512 (the in-place pair)
   and B=64 (the state-order pair);
 * VITERBI615 (K=15, r=1/6, Cassini) soft8, 256-byte frames: B=256 (the
-  in-place pair) and B=64 (the large-K pair kernel, whole frames and in two
-  blocks of 1031 steps, whose odd tails run the single-step kernel);
+  in-place pair) and B=64 (the on-chip pair kernel, one launch a block of
+  steps: whole frames and two blocks of 1031 steps with their odd tails);
 * VITERBI224 (K=24, r=1/2, ICE) soft8, 8-byte frames (T = 87) at B=8: the
-  depth-4 quad kernel (21 quads), its three-step remainder on the pair and
-  step kernels, the portable walk;
+  depth-4 kernel (ten octets, then the last quad and the three-step
+  remainder as one 7-step launch) on whole frames, and in blocks of 41 and
+  46 steps, whose remainders of 1 and 2 steps run on the streaming step and
+  pair kernels (no whole ICE call reaches them: the blocks are there to keep
+  them on a path); the portable walk;
 * the same ICE frames through ``phase_fns``: the update that returns the
-  byte-packed f8 walk table (the quad kernel in fields mode over ten quad
-  pairs, after 7 lead steps on the pair and step kernels) and the
-  8-steps-a-fetch table walk; and, asked for 7 of the 8 bytes, the f4 route;
+  byte-packed f8 walk table (the octet kernel in fields mode, ten octets,
+  after the 7 lead steps as one 7-step launch) and the 8-steps-a-fetch table
+  walk; and, asked for 7 of the 8 bytes, the f4 route (a 3-step lead);
 * VITERBI27 soft8, 1024-byte frames at B=1024 with the in-place route off
   (``KA9Q_TORCH_INPLACE=0`` for this path only): the depth-2 state-order
   kernel ``acs_update_tb2`` and ``chainback_tb``, through the decoder and
@@ -44,6 +47,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -207,6 +211,13 @@ def fields_bound_ms(B, T, lead, code) -> tuple[float, str]:
     return bound(nbytes, ops)
 
 
+def metric_pass_ms(B, code) -> float:
+    """One read and one write of every frame's metrics at the card's memory
+    rate: the traffic a large-K kernel pays each time the metrics cross
+    device memory."""
+    return 2 * 4 * B * code.num_states / HBM_BYTES_PER_S * 1e3
+
+
 def chainback_bound_ms(B, T, rotated) -> tuple[float, str]:
     """Least time of one traceback: the walk reads one word per step and
     frame (what the data needs), the end state, and writes T/32 words; per
@@ -352,12 +363,24 @@ def phase_kernels_large(tag, rng, errs):
           f"{(T // 2) // rn if rn else 0} times a frame")
     _, sym = noisy_symbols(soft8, B_CAS_LARGE, rng, 3, cas, CAS_BYTES)
     m0 = metrics0(cas, soft8, B_CAS_LARGE, state_major=False)
-    e, (_, words, _) = compare_large(f"acs_update_large2 cassini soft8 B={B_CAS_LARGE} T={T}",
-                                     large_k2.acs_update_large2, large_k2.acs_update_large2_ref,
-                                     (cas, soft8, m0, sym), keep=("acs_update_large2", None))
+    e, (m64, words, off64) = compare_large(
+        f"acs_update_large2 cassini soft8 B={B_CAS_LARGE} T={T}", large_k2.acs_update_large2,
+        large_k2.acs_update_large2_ref, (cas, soft8, m0, sym), keep=("acs_update_large2", None))
     note("acs_update_large2", e)
+    # B=1 and B=3 of the same frames (a cluster a frame, so the frames of a
+    # call are independent; four blocks a frame where B=64 takes two): equal
+    # to the B=64 call, which equals the plain version.
+    for B in (1, 3):
+        got = large_k2.acs_update_large2(cas, soft8, m0[:B].contiguous(), sym[:B].contiguous())
+        torch.cuda.synchronize()
+        e = max(max_abs_err(a, b[:B]) for a, b in zip(got, (m64, words, off64)))
+        print(f"acs_update_large2 cassini soft8 B={B} T={T} vs frames 0..{B - 1} of B="
+              f"{B_CAS_LARGE}: max_abs_err {e}")
+        note("acs_update_large2", check(f"acs_update_large2 cassini B={B}", e))
+        del got
+    del m64, off64
     # A block of 788 pairs: the second renormalisation follows the last pair,
-    # so frame_sub_kernel writes the returned metrics.
+    # and shifts the metrics as they leave the on-chip kernel.
     T_last = 4 * rn
     assert large_k2.renorm_schedule(cas, soft8, T_last)[1] == rn
     e, (m_last, _, _) = compare_large(
@@ -410,7 +433,8 @@ def phase_kernels_large(tag, rng, errs):
     T_ice = sym_ice.shape[1]
     for name, mod in (("acs_update_large2", large_k2), ("acs_update_large", large_k)):
         e, _ = compare_large(f"{name} ice B={B_ICE} T={T_ice}", getattr(mod, name),
-                             getattr(mod, name + "_ref"), (ice, s8, m_ice, sym_ice))
+                             getattr(mod, name + "_ref"), (ice, s8, m_ice, sym_ice),
+                             keep=(name, "ice") if name == "acs_update_large2" else None)
         note(name, e)
     del m_ice, sym_ice
     # The in-place pair at K=15, B=256, a whole frame.
@@ -431,11 +455,12 @@ def phase_kernels_large(tag, rng, errs):
 
 
 def phase_kernels_quad(tag, rng, errs):
-    """The depth-4 quad kernel in its three forms (words, f4 table, f8
-    table) and the pair kernel's G_2 planes, each against its plain
-    version: at the ICE paths' own shapes, at ICE with soft16 symbols so
-    that every renormalisation cadence fires, at the remainders 1 and 2, and
-    at a small K (time-major words, R=1)."""
+    """The depth-4 kernel (octets and a lone quad) in its three forms
+    (words, f4 table, f8 table) and the pair kernel's G_2 planes, each
+    against its plain version: at the ICE paths' own shapes, at ICE with
+    soft16 symbols so that every renormalisation cadence fires (one inside
+    an octet), at the remainders 0-3, and at a small K (time-major words,
+    R=1)."""
     ice, s8, s16 = VITERBI224, soft8_spec(2), soft16_spec(2)
     forms = ("acs_update_large4", "acs_update_large4_fields", "acs_update_large4_fields8")
 
@@ -460,17 +485,19 @@ def phase_kernels_quad(tag, rng, errs):
     assert large_k4.renorm_schedule4(ice, s8, T)[1] == 0
     three(f"ice soft8 B={B_ICE} T={T}", ice, s8, metrics0(ice, s8, B_ICE, state_major=False), sym,
           timed=True)
-    # Remainders 1 and 2 (T=87 has 3) from lifted metrics.
+    # Remainders 1, 2 and 0 after ten octets and a lone quad (T=87 has 3),
+    # and 3 after ten octets alone (T=83), from lifted metrics.
     m_lift = metrics0(ice, s8, 2, state_major=False) + torch.randint(
         0, 9, (2, ice.num_states), dtype=torch.int32, device="cuda")
-    for t in (85, 86):
+    for t in (85, 86, 84, 83):
         e, _ = compare_large(f"acs_update_large4 ice soft8 B=2 T={t}", large_k4.acs_update_large4,
                              large_k4.acs_update_large4_ref,
                              (ice, s8, m_lift, sym[:2, :t].contiguous()))
         note("acs_update_large4", e)
     del m_lift
-    # soft16: every 7 quads (21 quads: the third shift follows the last quad
-    # and runs frame_sub_kernel) and every 3 quad pairs.
+    # soft16: every 7 quads (21 quads: the shift after quad 6 falls inside
+    # the octet of quads 6-7, the third follows the lone last quad and runs
+    # frame_sub_kernel) and every 3 quad pairs (octets).
     assert large_k4.renorm_schedule4(ice, s16, T)[1] == 7
     assert large_k4.renorm_schedule4(ice, s16, T, None, 8)[1] == 3
     _, sym16 = noisy_symbols(s16, 2, rng, 160, ice, ICE_BYTES)
@@ -796,8 +823,7 @@ def drive_phase_fns(tag, rng):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[{tag}] ICE phase_fns path launches: {json.dumps(launches)}")
-    for name in ("acs_update_large4_fields8", "acs_update_large4_fields", "acs_update_large2",
-                 "acs_update_large"):
+    for name in ("acs_update_large4_fields8", "acs_update_large4_fields", "acs_update_large4"):
         if launches[name] == 0:
             raise SystemExit(f"FAIL: kernel {name} was not launched on the ICE phase_fns path")
 
@@ -885,10 +911,13 @@ def phase_decode(tag, rng):
                    [(B_CAS_INPLACE, None), (B_CAS_LARGE, None),
                     (B_CAS_LARGE, (VITERBI615.transmit_bits(CAS_BYTES) // 2,) * 2)],
                    rng, ("acs_update_inplace", "chainback_inplace", "acs_update_large2",
-                         "acs_update_large", "chainback_tb")),
+                         "chainback_tb")),
     ]
-    paths.append(drive_path(tag, "ICE", VITERBI224, soft8_spec(2), ICE_BYTES, [(B_ICE, None)],
-                            rng, ("acs_update_large4", "acs_update_large2", "acs_update_large")))
+    # Blocks of 41 and 46 steps: their 1- and 2-step remainders take the
+    # streaming step and pair kernels, which a whole ICE frame does not reach.
+    paths.append(drive_path(tag, "ICE", VITERBI224, soft8_spec(2), ICE_BYTES,
+                            [(B_ICE, None), (B_ICE, (41, 46))], rng,
+                            ("acs_update_large4", "acs_update_large2", "acs_update_large")))
     paths.append(drive_phase_fns(tag, rng))
     paths.append(drive_tb2_path(tag, rng))
     paths.append(drive_runner(tag))
@@ -897,18 +926,6 @@ def phase_decode(tag, rng):
     if zero:
         raise SystemExit(f"FAIL: kernels {zero} were not launched on any path")
     return launches
-
-
-# The times of the kernels that this file's in-place and traceback kernels
-# replaced (the same shapes, the same card and power limit), printed in
-# brackets beside the new ones.
-OLD_MS = {
-    ("acs_update_inplace", None): 2.8251, ("acs_update_inplace", "k15"): 31.7151,
-    ("chainback_inplace", None): 0.5932, ("chainback_inplace", "k15"): 1.1786,
-    ("chainback_tb", None): 0.4408, ("chainback_tb", "k15"): 0.6197,
-    # K=9 B=512 was timed as phases only (update, chainback)
-    ("acs_update_inplace", "k9"): 2.1735, ("chainback_inplace", "k9"): 2.1021,
-}
 
 
 def compared_args(name, key=None):
@@ -934,9 +951,7 @@ def kernel_row(tag, rows, name, fn, ref, args, shape, bnd, iters, key=None, kwar
         rows.setdefault(name, {})[key] = row
     else:
         rows[name] = row
-    old = OLD_MS.get((name, key))
     print(f"[{tag}] {name} {shape}: kernel {ms:.4f} ms"
-          + (f" [{old:.4f}]" if old else "")
           + (f" = {1e6 * ms / steps:.1f} ns a step" if steps else "")
           + f", plain {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
           f"{100 * bnd[0] / ms:.1f}% of bound")
@@ -1024,10 +1039,8 @@ def phase_timing_large(tag, rng, rows):
     ms = kernel_row(tag, rows, "acs_update_large2", large_k2.acs_update_large2,
                     large_k2.acs_update_large2_ref, args,
                     f"cassini B={B} T={T}", acs_bound_ms(B, T, cas), 10)
-    streamed = (T // 2) * 2 * B * cas.num_states * 4
-    print(f"[{tag}] acs_update_large2 cassini B={B}: metric traffic of one read and one write "
-          f"a pair {streamed / 1e9:.3f} GB = {streamed / HBM_BYTES_PER_S * 1e3:.4f} ms at "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s; {1e3 * ms / (T // 2):.3f} us a pair")
+    print(f"[{tag}] acs_update_large2 cassini B={B}: {1e3 * ms:.1f} us a call = "
+          f"{1e3 * ms / (T // 2):.3f} us a pair (launches: phase_launch_trace)")
     tail = sym[:, T - 1:].contiguous()
     kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
                large_k.acs_update_large_ref, (cas, soft8, m0, tail), f"cassini tail B={B} T=1",
@@ -1064,14 +1077,16 @@ def phase_timing_large(tag, rng, rows):
 
 
 def phase_timing_quad(tag, rng, rows):
-    """The three forms of the quad kernel at the ICE paths' shapes (B=8,
+    """The three forms of the depth-4 kernel at the ICE paths' shapes (B=8,
     T=87), the pair kernel on the same steps beside them, and the phases of
-    the ICE decoder and of ``phase_fns``."""
+    the ICE decoder and of ``phase_fns``.  Returns, for each form, the
+    inputs and time of its quads alone (the call without its remainder or
+    lead steps), for ``phase_launch_trace``."""
     ice, s8, B = VITERBI224, soft8_spec(2), B_ICE
     _, _, m0, sym = compared_args("acs_update_large4")
     T = sym.shape[1]
     shape = f"ice B={B} T={T}"
-    quad_traffic = 2 * B * ice.num_states * 4
+    quads = {}
     for name, lead, bnd in (
             ("acs_update_large4", None, acs_bound_ms(B, T, ice)),
             ("acs_update_large4_fields", ICE_LEAD4, fields_bound_ms(B, T, ICE_LEAD4, ice)),
@@ -1081,22 +1096,18 @@ def phase_timing_quad(tag, rng, rows):
         ms = kernel_row(tag, rows, name, getattr(large_k4, name), getattr(large_k4, name + "_ref"),
                         args, label, bnd, 5)
         torch.cuda.empty_cache()
-        # The quad launches alone: the same call without its remainder or lead steps.
+        # The octet and quad launches alone: the same call without its remainder or lead steps.
         nq = (T - (lead or 0)) // 4
-        if lead is None:
-            whole = sym[:, :4 * nq].contiguous()
-            quads_ms = timed_ms(lambda: large_k4.acs_update_large4(ice, s8, m0, whole), 5)
-        else:
-            rest = sym[:, lead:].contiguous()
-            quads_ms = timed_ms(lambda: getattr(large_k4, name)(ice, s8, m0, rest, 0), 5)
-        print(f"[{tag}] {name} {shape}: {nq} quad launches alone {quads_ms:.4f} ms = "
-              f"{1e3 * quads_ms / nq:.2f} us a launch; metric traffic of one read and one write a "
-              f"quad {quad_traffic / 1e6:.1f} MB = {quad_traffic / HBM_BYTES_PER_S * 1e6:.2f} us "
-              f"at {HBM_BYTES_PER_S / 1e12} TB/s; the whole call {ms:.4f} ms")
-    ms = timed_ms(lambda: large_k2.acs_update_large2(ice, s8, m0, sym), 5)
-    print(f"[{tag}] acs_update_large2 {shape} (the pair kernel on the same steps, not on the "
-          f"path): kernel {ms:.4f} ms = {1e3 * ms / (T // 2):.2f} us a pair, bound "
-          f"{acs_bound_ms(B, T, ice)[0]:.4f} ms")
+        body = sym[:, (lead or 0):(lead or 0) + 4 * nq].contiguous()
+        extra = () if lead is None else (0,)
+        quads_ms = timed_ms(lambda: getattr(large_k4, name)(ice, s8, m0, body, *extra), 5)
+        quads[name] = (args, body, extra, nq, quads_ms, ms)
+    # The streaming pair kernel on the same steps (not on a path), on its comparison's inputs.
+    ms = kernel_row(tag, rows, "acs_update_large2", large_k2.acs_update_large2,
+                    large_k2.acs_update_large2_ref, compared_args("acs_update_large2", "ice"),
+                    f"{shape} (streaming, not on a path)", acs_bound_ms(B, T, ice), 5, key="ice")
+    print(f"[{tag}] acs_update_large2 {shape}: {1e3 * ms / (T // 2):.2f} us a pair; metric-traffic "
+          f"floor {T // 2 + T % 2} passes {(T // 2 + T % 2) * metric_pass_ms(B, ice):.4f} ms")
     del m0
     torch.cuda.empty_cache()
     decoder_phases(tag, ice, s8, B, ICE_BYTES, rng, "ICE (depth-4 words, portable walk)",
@@ -1123,7 +1134,75 @@ def phase_timing_quad(tag, rng, rows):
           f"{B * nbits / (cb_ms * 1e-3) / 1e6:.4g} Mbit/s")
     del table
     torch.cuda.empty_cache()
+    return quads
 
+
+# The kernels of the large-K sources; each launch reads (frame_min_kernel) or
+# reads and writes every frame's metrics once: a pass through device memory.
+PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_step_kernel",
+                "acs_large_octet_kernel", "acs_large_quad_kernel", "frame_min_kernel",
+                "frame_sub_kernel")
+
+
+def trace_launches(fn) -> dict[str, int]:
+    """The large-K kernels' launches in one call of ``fn``, as a profiler
+    trace of the device records them: kernel (with its template arguments)
+    -> launches.  Empty where the profiler records no kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        hit = re.search(r"(\w+)(<[^()]*>)?\(", e.key)
+        if hit and hit.group(1) in PASS_KERNELS:
+            name = hit.group(1) + (hit.group(2) or "")
+            counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
+def launch_text(counts: dict[str, int]) -> str:
+    if not counts:
+        return "kernel launches not measured (the profiler recorded no kernel)"
+    return (f"{sum(counts.values())} kernel launches (device trace: "
+            + ", ".join(f"{n} {k}" for k, n in sorted(counts.items())) + ")")
+
+
+def phase_launch_trace(tag, rng, quads):
+    """Launches a call, and so passes of the metrics through device memory,
+    of the large-K update forms at the paths' shapes, from a profiler trace
+    (the wrappers' counters count one a call); µs a pass of the depth-4
+    forms' quads from ``phase_timing_quad``'s times (a shift pass's time
+    included) over their ACS launches.  Last, so that the profiler runs
+    after every timing."""
+    cas, s6 = VITERBI615, soft8_spec(6)
+    _, sym = noisy_symbols(s6, B_CAS_LARGE, rng, 3, cas, CAS_BYTES)
+    m = metrics0(cas, s6, B_CAS_LARGE, state_major=False)
+    T = sym.shape[1]
+    counts = trace_launches(lambda: large_k2.acs_update_large2(cas, s6, m, sym))
+    print(f"[{tag}] acs_update_large2 cassini B={B_CAS_LARGE} T={T} (on chip, "
+          f"{large_k2.chip_blocks(cas, B_CAS_LARGE)} blocks a frame): {launch_text(counts)} a call; "
+          f"metric-traffic floor 1 pass {metric_pass_ms(B_CAS_LARGE, cas):.4f} ms (streaming, a "
+          f"pass a pair: {(T // 2) * metric_pass_ms(B_CAS_LARGE, cas):.4f} ms)")
+    del m, sym
+    ice, s8 = VITERBI224, soft8_spec(2)
+    pass_ms = metric_pass_ms(B_ICE, ice)
+    for name, (args, body, extra, nq, quads_ms, ms) in quads.items():
+        fn = getattr(large_k4, name)
+        counts = trace_launches(lambda: fn(*args))
+        alone = trace_launches(lambda: fn(ice, s8, args[2], body, *extra))
+        passes = sum(n for k, n in alone.items() if not k.startswith("frame_"))
+        T = args[3].shape[1]
+        per_pass = f"{1e3 * quads_ms / passes:.2f} us a pass" if passes else "not measured"
+        print(f"[{tag}] {name} ice B={B_ICE} T={T}: the whole call {ms:.4f} ms, "
+              f"{launch_text(counts)}; its {nq} quads alone {quads_ms:.4f} ms in {passes} ACS "
+              f"launches and {sum(alone.values()) - passes} shift passes (device trace) = "
+              f"{per_pass}; metric-traffic floor {1e3 * pass_ms:.2f} us a pass "
+              f"({2 * 4 * B_ICE * ice.num_states / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12} TB/s), "
+              f"{-(-T // 8)} passes at 8 steps a pass {-(-T // 8) * pass_ms:.4f} ms")
+    torch.cuda.empty_cache()
 
 
 def phase_fns_phases(tag, code, numeric, B, n_bytes, rng, label, chain_ks=()):
@@ -1226,10 +1305,12 @@ def main() -> int:
     done("K=7 and K=9 timing")
     phase_timing_large(tag, rng, rows)
     done("Cassini timing")
-    phase_timing_quad(tag, rng, rows)
+    quads = phase_timing_quad(tag, rng, rows)
     done("ICE timing")
     phase_timing_tb2(tag, rng, rows)
     done("depth-2 and phase_fns timing")
+    phase_launch_trace(tag, rng, quads)
+    done("launches a call (device trace)")
     print(f"[{tag}] chip_smoke: {time.perf_counter() - t0:.1f} s in all")
 
     line = {"kernels": [

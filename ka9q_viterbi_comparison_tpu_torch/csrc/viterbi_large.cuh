@@ -1,7 +1,8 @@
 // Shared by viterbi_large.cu and viterbi_large4.cu: the code description,
-// branch-penalty tables, the butterfly, and the per-frame shift-to-zero
-// renormalisation kernels of the state-blocked large-K kernels.  Each source
-// includes this file into its own anonymous namespace.
+// branch-penalty tables, the butterfly, the decision-word packing, and the
+// per-frame shift-to-zero renormalisation kernels of the state-blocked
+// large-K kernels.  Each source includes this file into its own anonymous
+// namespace.
 
 #pragma once
 
@@ -19,6 +20,8 @@ struct Code {
   int km[4];        // bit r of km[h*2 + b]: (b & poly_r) ^ (h & poly_r >> (K-1)) ^ inv_r
   int par_q;        // parities of S/4 (pair kernel: p -> p + S/4)
   int par_1;        // parities of 1 (2p -> 2p + 1)
+  int comp;         // R (high - low): q[x] + q[x ^ (2^R - 1)] for every x
+  bool complement;  // every polynomial taps both register ends (all six reference codes)
 };
 
 __device__ __forceinline__ int parities(int s, const Code& c, int R) {
@@ -45,28 +48,148 @@ __device__ __forceinline__ void build_table(int* q, const int* __restrict__ sym,
   }
 }
 
-// One butterfly: predecessors lo (h=0) and hi (h=1) with parities pb; the
-// candidates for input bit b go to out[b], their decisions to d[b].
-__device__ __forceinline__ void butterfly(int lo, int hi, int pb, const int* q, const Code& c,
-                                          int* out, bool* d) {
+// A shared-memory address as the 32-bit offset ld.shared takes.  A penalty
+// table of 2^R entries aligned to its size turns the index XOR of a look-up
+// into an XOR of the address: the row's address OR (pk << 2), XOR (x << 2).
+typedef unsigned saddr_t;
+__device__ __forceinline__ saddr_t saddr(const void* p) {
+  return (saddr_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ int lds(saddr_t a) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts(saddr_t a, int v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+}
+
+// 16 or 4 bytes from device memory into shared memory without a register,
+// and the wait for every such copy of the thread.
+__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(saddr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(saddr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// One butterfly: predecessors lo (h=0) and hi (h=1), `a` the address of its
+// (0,0) branch's table entry (the low predecessor's parities XOR km[0],
+// `entry`); the survivors for input bit b go to out[b],
+// c_hi - c_lo to diff[b], whose sign is the decision (ties keep the low
+// predecessor).  COMP (Code::complement): the branches (0,1) and (1,0) carry
+// the complement of (0,0)'s pattern and (1,1) the same, so one look-up
+// serves all four, the complement's penalty being comp (R (high - low), less
+// twice a shift the table holds subtracted) minus it.
+template <bool COMP>
+__device__ __forceinline__ void bfly(int lo, int hi, saddr_t a, int comp, const Code& c,
+                                     int* out, int* diff) {
+  int l0, h0, l1, h1;
+  if (COMP) {
+    const int bm = lds(a);
+    l0 = lo + bm;
+    h0 = hi + comp - bm;
+    l1 = lo + comp - bm;
+    h1 = hi + bm;
+  } else {
+    l0 = lo + lds(a);
+    h0 = hi + lds(a ^ ((c.km[0] ^ c.km[2]) << 2));
+    l1 = lo + lds(a ^ ((c.km[0] ^ c.km[1]) << 2));
+    h1 = hi + lds(a ^ ((c.km[0] ^ c.km[3]) << 2));
+  }
+  out[0] = min(l0, h0);
+  out[1] = min(l1, h1);
+  diff[0] = h0 - l0;
+  diff[1] = h1 - l1;
+}
+
+// The address of a table row's entry at the parities of state s XOR km[0].
+__device__ __forceinline__ saddr_t entry(const int* row, int s, const Code& c, int R) {
+  return saddr(row) | ((parities(s, c, R) ^ c.km[0]) << 2);
+}
+
+// Bits `d` (a decision in bit 0) below `bits`: bits * 2 + d.
+__device__ __forceinline__ unsigned push_bit(unsigned bits, int diff) {
+  return (bits << 1) | ((unsigned)diff >> 31);
+}
+
+// Decision words from bits a lane holds for 32 lanes of consecutive p
+// (p >> 5 = w).  Lane l holds 16 bits, bit j = m NB + k the decision of
+// state k of its group m (NB = 2^L states a group, 16 / NB groups); the word
+// of group m holding lane l's bits is m * (W >> (4 - L)) + w NB + (l >> (5 -
+// L)), at bit NB (l mod 32/NB) + k.  The bits cross lanes as a transposition:
+// 4 - L stages swap lane bit s with bit L + s of the data (a shuffle each),
+// after which lane l holds the low or high half (lane bit 4 - L) of the word
+// of group m = l mod 2^(4-L); one more shuffle joins the halves and 16 lanes
+// store.
+template <int L>
+__device__ __forceinline__ void store_words(unsigned v, int* wt, int lane, int w, int W) {
+  constexpr int NB = 1 << L;
 #pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    const int c_lo = lo + q[pb ^ c.km[b]];
-    const int c_hi = hi + q[pb ^ c.km[2 + b]];
-    d[b] = c_hi < c_lo;
-    out[b] = d[b] ? c_hi : c_lo;
+  for (int s = 0; s < 4 - L; ++s) {
+    constexpr unsigned kM1[4] = {0xAAAAu, 0xCCCCu, 0xF0F0u, 0xFF00u};  // bit b of j set
+    const int sh = 1 << (L + s);
+    const unsigned m1 = kM1[L + s], m0 = m1 ^ 0xFFFFu;
+    const bool up = (lane >> s) & 1;  // sends its bit-b-clear half up, keeps the set half
+    const unsigned send = v & (up ? m0 : m1);
+    const unsigned t = __shfl_xor_sync(0xffffffffu, (send << sh) >> (up ? 0 : 2 * sh), 1 << s);
+    v = (v & (up ? m1 : m0)) | t;
+  }
+  const unsigned t = __shfl_xor_sync(0xffffffffu, v, 1 << (4 - L));
+  if (((lane >> (4 - L)) & 1) == 0)
+    wt[(lane & ((1 << (4 - L)) - 1)) * (W >> (4 - L)) + w * NB + (lane >> (5 - L))] =
+        (int)(v | (t << 16));
+}
+
+// The words of the pair kernel's two steps from its lanes' decision bits
+// (lanes hold p = 32 w + l).  v1: step t, bit 2g + b1 for state 2p + b1 +
+// g S/2: word g (W/2) + 2w + l/16, bit 2 (l mod 16) + b1.  v2: step t+1, bit
+// k for state 4p + k: word 4w + l/8, bit 4 (l mod 8) + k, at wt + wst; the
+// G_2 plane (gt, null for none) alike, bit k the step-t decision at the
+// predecessor state 4p + k's survivor came from.
+__device__ __forceinline__ void pair_words(unsigned v1, unsigned v2, int lane, int w, int W,
+                                           int* wt, long long wst, int* gt) {
+  // Step t: swap g with lane bit 0, then OR 8 lanes' 4 bits into a word.
+  const bool up = lane & 1;
+  const unsigned t = __shfl_xor_sync(0xffffffffu, ((v1 & (up ? 3u : 12u)) << 2) >> (up ? 0 : 4), 1);
+  unsigned x = ((v1 & (up ? 12u : 3u)) | t) << (4 * ((lane >> 1) & 7));
+#pragma unroll
+  for (int o = 2; o < 16; o <<= 1) x |= __shfl_xor_sync(0xffffffffu, x, o);
+  if ((lane & 14) == 0) wt[(lane & 1) * (W >> 1) + 2 * w + (lane >> 4)] = (int)x;
+  // Step t+1 (and G_2): OR 8 lanes' 4 bits into a word.
+  unsigned y = v2 << (4 * (lane & 7));
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) y |= __shfl_xor_sync(0xffffffffu, y, o);
+  if ((lane & 7) == 0) wt[wst + 4 * w + (lane >> 3)] = (int)y;
+  if (gt != nullptr) {
+    // bit k: v1 bit 2 d + (k >> 1), d = bit k of v2
+    const unsigned a = (v1 & 1u) * 3u | ((v1 >> 1) & 1u) * 12u;         // g = 0
+    const unsigned b = ((v1 >> 2) & 1u) * 3u | ((v1 >> 3) & 1u) * 12u;  // g = 1
+    unsigned z = ((a & ~v2) | (b & v2)) << (4 * (lane & 7));
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) z |= __shfl_xor_sync(0xffffffffu, z, o);
+    if ((lane & 7) == 0) gt[4 * w + (lane >> 3)] = (int)z;
   }
 }
 
 // mn[b] = min(mn[b], min over the frame's S metrics); mn starts at INT_MAX.
+// S is a multiple of 4: 16-byte accesses.
 __global__ void __launch_bounds__(kThreads)
 frame_min_kernel(const int* __restrict__ m, int S, int* __restrict__ mn) {
   __shared__ int part[kThreads / 32];
   const int b = blockIdx.y;
-  const int* f = m + (size_t)b * S;
+  const int4* f = reinterpret_cast<const int4*>(m + (size_t)b * S);
   int v = INT_MAX;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < S; i += gridDim.x * blockDim.x)
-    v = min(v, f[i]);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < (S >> 2); i += gridDim.x * blockDim.x) {
+    const int4 x = f[i];
+    v = min(v, min(min(x.x, x.y), min(x.z, x.w)));
+  }
   v = __reduce_min_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
   __syncthreads();
@@ -83,14 +206,16 @@ frame_sub_kernel(int* __restrict__ m, int S, const int* __restrict__ sub, int* _
   const int b = blockIdx.y;
   const int sh = sub[b];
   if (blockIdx.x == 0 && threadIdx.x == 0) off[b] += sh;
-  int* f = m + (size_t)b * S;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < S; i += gridDim.x * blockDim.x)
-    f[i] -= sh;
+  int4* f = reinterpret_cast<int4*>(m + (size_t)b * S);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < (S >> 2); i += gridDim.x * blockDim.x) {
+    const int4 x = f[i];
+    f[i] = make_int4(x.x - sh, x.y - sh, x.z - sh, x.w - sh);
+  }
 }
 
 dim3 reduce_grid(int S, int B) {
   const int per = kThreads * 8;
-  int n = (S + per - 1) / per;
+  int n = ((S >> 2) + per - 1) / per;
   return dim3(n < 1024 ? n : 1024, B);
 }
 
@@ -99,7 +224,7 @@ cudaError_t frame_min(const int* m, int S, int B, int* mn, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-Code make_code(const int* polys, int K, int R, int inv) {
+Code make_code(const int* polys, int K, int R, int inv, int low, int hl) {
   Code c = {};
   for (int r = 0; r < R; ++r) {
     const int p = polys[r];
@@ -113,6 +238,9 @@ Code make_code(const int* polys, int K, int R, int inv) {
     c.par_q |= (__builtin_popcount(S4 & c.mask[r]) & 1) << r;
     c.par_1 |= (c.mask[r] & 1) << r;
   }
+  const int full = (1 << R) - 1;
+  c.comp = R * (hl - 2 * low);
+  c.complement = c.km[1] == (c.km[0] ^ full) && c.km[2] == (c.km[0] ^ full) && c.km[3] == c.km[0];
   return c;
 }
 

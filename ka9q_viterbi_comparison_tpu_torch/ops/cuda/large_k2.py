@@ -1,14 +1,20 @@
 """Depth-2 fused state-blocked ACS for large trellises.
 
 Port of ``acs_update_large2`` from
-``ka9q_viterbi_comparison_tpu/ops/pallas/large_k2.py``.  The CUDA kernel is
-``acs_large_pair_kernel`` in ``csrc/viterbi_large.cu``: two trellis steps per
-launch, the intermediate metrics never leave registers, metrics live in
-device memory between launches, and the launch loop runs inside the C
-launcher.  An odd step count ends in one ``large_k.acs_update_large`` step,
-as in the JAX package.  Beside the wrapper is its plain PyTorch version
-(``acs_update_large2_ref``) with the same contract.  A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+``ka9q_viterbi_comparison_tpu/ops/pallas/large_k2.py``.  The CUDA kernels are
+in ``csrc/viterbi_large.cu``; each step pair runs in a thread's registers.
+Where a frame's metrics fit on chip (``chip_blocks``: K <= 17) one launch of
+``acs_pairs_chip_kernel`` runs the whole block, odd tail included, with each
+frame's metrics in the shared memory of a cluster of 1-4 blocks (by the
+trellis and the batch).  Larger trellises (K=24), and small ones whose blocks
+have fewer threads than a pair has table entries, stream:
+``acs_large_pair_kernel``, one launch a pair with the metrics in device
+memory, the launch loop inside the C launcher, and an odd step count ends in
+one ``large_k.acs_update_large`` step, as in the JAX package.  The choice is
+made on the shape alone.  Beside the wrapper is its
+plain PyTorch version (``acs_update_large2_ref``) with the same contract.  A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 
 The renormalisation schedule is the JAX package's, exactly, since it decides
 the returned metrics and offset: the entry shift; in-scan shift-to-zero after
@@ -29,15 +35,44 @@ from __future__ import annotations
 
 import torch
 
+import ctypes
+
 from ...configs import CodeSpec, NumericSpec
 from ...utils.bits import pack_bits_to_words, unpack_words_to_bits
+from . import _build
 from .kernels import _state_order_words
-from .large_k import (_check_inputs, _shift_to_zero, acs_update_large_ref, launch_large,
-                      metric_dtype_for)
+from .large_k import (_check_inputs, _shift_to_zero, acs_update_large_ref, code_args,
+                      launch_large, metric_dtype_for)
 
-__all__ = ["acs_update_large2", "acs_update_large2_ref", "renorm_schedule", "launch_block"]
+__all__ = ["acs_update_large2", "acs_update_large2_ref", "renorm_schedule", "launch_block",
+           "chip_blocks"]
 
 DTYPES = {"int16": torch.int16, "int32": torch.int32}
+CHIP_STATES = 16384   # most states a block of the on-chip form holds (two 64 KB buffers)
+CHIP_THREADS = 1024   # threads a block of the on-chip form, at most: one quad each
+CHIP_WAVE = 128       # on-chip blocks the H100 runs at once: its 132 SMs in clusters of up to four
+
+
+def chip_blocks(code: CodeSpec, batch: int) -> int:
+    """Blocks a frame (one thread-block cluster) of the on-chip pair kernel
+    for ``batch`` frames, or 0 where the block streams: where a frame's
+    metrics do not fit on chip (``S / 4 > CHIP_STATES``), and where a block
+    has fewer threads than a pair has table entries (``2^(R+1)``; K=8-11
+    with R >= 5).  Where one block gives each thread one quad at most
+    (``S <= 4 * CHIP_THREADS``), one block; above, the most blocks (each at
+    most ``CHIP_STATES`` states) that run every frame in one wave
+    (``batch * blocks <= CHIP_WAVE``), else the fewest.  Measured at K=11-16
+    (``harness/probe_large.py``, PERF.md): a cluster costs a fixed 1.5 us a
+    pair, paid back from K=14 while one wave holds every frame.  The
+    launcher takes the count and checks it."""
+    S = code.num_states
+    if not 8 <= code.K <= 24 or S // 4 > CHIP_STATES:
+        return 0
+    if S <= 4 * CHIP_THREADS:
+        return 1 if S // 4 >= 2 << code.R else 0
+    fits = [cl for cl in (1, 2, 4) if S // cl <= CHIP_STATES]
+    wave = [cl for cl in fits if batch * cl <= CHIP_WAVE]
+    return max(wave) if wave else fits[0]
 
 
 def renorm_schedule(code: CodeSpec, numeric: NumericSpec, T: int,
@@ -123,21 +158,57 @@ def acs_update_large2_ref(code: CodeSpec, numeric: NumericSpec, metrics: torch.T
 def launch_block(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
                  symbols: torch.Tensor, words: torch.Tensor, offset: torch.Tensor,
                  strides: tuple[int, int], t0: int, T: int, metric_dtype: str | None = None,
-                 g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0)):
+                 g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0),
+                 shifts: bool = True):
     """Steps ``[t0, t0 + T)`` of ``symbols`` as one ``acs_update_large2``
-    block on the card: ``T // 2`` launches of the pair kernel on the schedule
-    of a ``T``-step block, then the odd tail as one launch of the step
+    block on the card, on the schedule of a ``T``-step block: where the frame
+    fits on chip, one launch of the on-chip kernel; else ``T // 2`` launches
+    of the streaming pair kernel, then the odd tail as one launch of the step
     kernel with its own entry shift.  Returns the metrics; ``words``,
-    ``offset`` and ``g2`` are filled in place."""
+    ``offset`` and ``g2`` are filled in place.
+
+    The ACS commutes with a uniform shift and the metrics are int32, so the
+    shifts up to a point add up to the frame minimum there: a shift that a
+    later one follows changes neither the returned metrics nor the offset.
+    The streaming form skips those, each a pass over the metrics: with no
+    in-scan renormalisation the pairs' entry shift when the tail's follows,
+    and with ``shifts=False`` (the caller shifts next) every shift."""
     _, rn = renorm_schedule(code, numeric, T, metric_dtype)
+    blocks = chip_blocks(code, metrics.shape[0])
+    if blocks:
+        return launch_chip(code, numeric, metrics, symbols, words, offset, strides, t0, T, rn,
+                           blocks, g2, g2_strides)
     m = metrics
     if T >= 2:
+        pair_shifts = shifts and not (T % 2 and rn == 0)
         m = launch_large("acs_update_large2", 2, code, numeric, m, symbols, words, offset,
-                         strides, t0, T // 2, rn, g2, g2_strides)
+                         strides, t0, T // 2, rn if pair_shifts else 0, g2, g2_strides,
+                         pair_shifts)
     if T % 2:
         m = launch_large("acs_update_large", 1, code, numeric, m, symbols, words, offset,
-                         strides, t0 + T - 1, 1)
+                         strides, t0 + T - 1, 1, shifts=shifts)
     return m
+
+
+def launch_chip(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
+                symbols: torch.Tensor, words: torch.Tensor, offset: torch.Tensor,
+                strides: tuple[int, int], t0: int, T: int, rn: int, blocks: int,
+                g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0)):
+    """Check and call the on-chip launcher of ``csrc/viterbi_large.cu``: one
+    launch for steps ``[t0, t0 + T)``, ``blocks`` blocks a frame (1, 2 or
+    4), renormalising after every ``rn``-th pair.  Returns the final metrics
+    ``[B, S]`` int32."""
+    B, T_sym, R = symbols.shape
+    _build.check_cuda_int32("metrics", metrics, (B, code.num_states))
+    _build.check_cuda_int32("symbols", symbols, (B, T_sym, R))
+    _build.check_cuda_int32("offset", offset, (B,))
+    m_out = torch.empty_like(metrics)
+    polys = (ctypes.c_int * R)(*code.abs_polys())
+    _build.launch("acs_update_large2", "viterbi_acs_large2_chip", metrics.device,
+                  metrics.data_ptr(), symbols.data_ptr(), polys, m_out.data_ptr(),
+                  words.data_ptr(), g2.data_ptr() if g2 is not None else None, offset.data_ptr(),
+                  blocks, *code_args(code, numeric), B, T_sym, t0, T, rn, *strides, *g2_strides)
+    return m_out
 
 
 def acs_update_large2(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,

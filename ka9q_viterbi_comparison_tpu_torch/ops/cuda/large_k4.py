@@ -3,30 +3,43 @@
 Port of ``ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py``
 (``acs_update_large4``, ``acs_update_large4_fields``,
 ``acs_update_large4_fields8``).  The CUDA kernel is ``acs_large_quad_kernel``
-in ``csrc/viterbi_large4.cu``: four trellis steps per launch, all four levels
-in a thread's registers, metrics in device memory between launches, the
-launch loop inside the C launcher.  It serves every trellis with at least 512
-states (K >= 10) at R <= 2.  Beside each wrapper is its plain PyTorch version
-(``*_ref``) with the same contract.  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+in ``csrc/viterbi_large4.cu``: eight trellis steps per launch (an octet: two
+four-level quads in a thread's registers with one transpose through shared
+memory between them), metrics in device memory between launches, the launch
+loop inside the C launcher; a call of an odd number of quads ends in one
+four-step launch.  It serves every trellis with at least 512 states (K >= 10)
+at R <= 2.  Beside each wrapper is its plain PyTorch version (``*_ref``) with
+the same contract.  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 
 ``acs_update_large4`` returns decision words, as ``acs_update_large2`` does;
-the 0-3 steps past the last whole quad run as an ``acs_update_large2`` block
-of their own (entry shift, pair, odd tail).
+the 1-3 steps past the last whole quad run as an ``acs_update_large2`` block
+of their own (entry shift, pair, odd tail), or, three of them with no
+in-scan renormalisation, with the last quad as one 7-step launch (a quad and
+a three-level tri).
 
 The fields forms return a walk table for ``ops.radix_planes`` instead of
 words.  The survivor's predecessor is the traceback's next state, so the
 kernel carries each state's last decisions through its levels, ``pf_l =
 (pf_{l-1}[winner] << 1) | d_l``, and writes the 4-step field of every final
-state nibble-packed (``f4``); over quad pairs the second quad starts from the
-first's fields and writes the 8-step field byte-packed (``f8``).  Their first
-``lead`` steps run as an ``acs_update_large2`` block whose words are dropped:
-callers walk no further back than step ``lead``.
+state nibble-packed (``f4``, two windows an octet); in the f8 form the
+octet's second quad starts from the first's fields and writes the 8-step
+field byte-packed (``f8``).  Their first ``lead`` steps run on the words form
+(counted as ``acs_update_large4``: one launch for a lead of 3 or 7 steps, a
+tri or a quad and a tri; else whole quads and an ``acs_update_large2``
+block), whose words are dropped: callers walk no further back than step
+``lead``.
 
 The renormalisation schedules are the JAX package's, exactly, since they
 decide the returned metrics and offset (``renorm_schedule4``): quads count
-within the call, quad pairs in the f8 form.  Metrics are stored as int32
-throughout, as in ``large_k2``.
+within the call, quad pairs (octets) in the f8 form; a shift that falls
+between the two quads of an octet is taken there as the frame minimum and
+subtracted as the next launch reads.  Metrics are stored as int32
+throughout, as in ``large_k2``, so a shift that a later one follows changes
+neither the returned metrics nor the offset (the ACS commutes with a uniform
+shift): the launches skip those that cost a pass over the metrics (the lead
+steps' shifts; with no in-scan renormalisation, the quads' entry shift when
+a remainder follows).
 """
 
 from __future__ import annotations
@@ -35,7 +48,7 @@ import torch
 
 from ...configs import CodeSpec, NumericSpec
 from .. import radix_planes as rp
-from . import _build
+from . import _build, large_k
 from .kernels import _state_order_words
 from .large_k import (_check_inputs, _shift_to_zero, code_args, launch_args, metric_dtype_for,
                       pick_state_block)
@@ -172,21 +185,31 @@ def acs_update_large4_fields8_ref(code: CodeSpec, numeric: NumericSpec, metrics:
 
 def launch_quads(counter: str, mode: int, code: CodeSpec, numeric: NumericSpec,
                  metrics: torch.Tensor, symbols: torch.Tensor, table: torch.Tensor,
-                 offset: torch.Tensor, strides: tuple[int, int], t0: int, nl: int,
-                 rn: int) -> torch.Tensor:
-    """Check and call the launcher of ``csrc/viterbi_large4.cu``: ``nl``
-    launches of the quad kernel from step ``t0`` of ``symbols``,
-    renormalising every ``rn`` launches.  ``table``: the words (``strides``:
-    their frame and step strides) or the f4 / f8 table.  Returns the final
-    metrics ``[B, S]`` int32; ``table`` and ``offset`` are filled in place."""
-    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, nl, rn)
+                 offset: torch.Tensor, strides: tuple[int, int], t0: int, nq: int,
+                 rn: int, shifts: bool = True, tail: int = 0,
+                 entry: torch.Tensor | None = None, fin: int = 0):
+    """Check and call the launcher of ``csrc/viterbi_large4.cu``: ``nq``
+    quads from step ``t0`` of ``symbols`` (``nq // 2`` octet launches, then a
+    lone quad for odd ``nq``), renormalising after every ``rn``-th quad,
+    then ``tail`` (0 or 3, words form) steps that run with the last quad as
+    one 7-step launch.  ``table``: the words (``strides``: their frame and
+    step strides) or the f4 / f8 table.  ``shifts=False`` (``rn = 0``): no
+    entry shift either, for quads whose shifts a later one subsumes;
+    ``entry``: a ``[B]`` row holding the entry shift, computed by an earlier
+    call.  ``fin`` (with the tail): 2 returns the frame minimum of the final
+    metrics, unsubtracted, for the next call's entry; 3 shifts by the
+    minimum before the last step.  Returns the final metrics ``[B, S]``
+    int32, and with ``fin=2`` that minimum; ``table`` and ``offset`` are
+    filled in place."""
+    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, nq, rn, shifts)
     B = metrics.shape[0]
-    f4_tmp = (torch.empty((4, B, code.decision_words), dtype=torch.int32, device=metrics.device)
-              if mode == MODE_F8 else None)
+    fmin = (torch.full((B,), large_k.INT32_MAX, dtype=torch.int32, device=metrics.device)
+            if fin else None)
     _build.launch(counter, "viterbi_acs_large4", metrics.device, mode, *scratch[:5],
-                  table.data_ptr(), f4_tmp.data_ptr() if f4_tmp is not None else None,
-                  *scratch[5:], *code_args(code, numeric), *symbols.shape[:2], t0, nl, rn, *strides)
-    return m_out
+                  table.data_ptr(), *scratch[5:], entry.data_ptr() if entry is not None else None,
+                  fmin.data_ptr() if fmin is not None else None, fin, *code_args(code, numeric),
+                  *symbols.shape[:2], t0, nq, tail, rn, *strides)
+    return (m_out, fmin) if fin == 2 else m_out
 
 
 def acs_update_large4(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
@@ -214,9 +237,18 @@ def acs_update_large4(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tenso
     words, strides = words_buffer(B, T, code.decision_words, time_major, metrics.device)
     offset = torch.zeros((B,), dtype=torch.int32, device=metrics.device)
     m = metrics
-    if T >= 4:
+    if T % 4 == 3 and T > 4 and rn == 0:
+        # The remainder's shifts (its entry, its tail's entry) add up to the
+        # minimum before the last step, and subsume the quads' entry shift:
+        # the last quad and the remainder run as one 7-step launch.
         m = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, words,
-                         offset, strides, 0, T // 4, rn)
+                         offset, strides, 0, T // 4, 0, False, 3, fin=3)
+        return m, words, offset
+    if T >= 4:
+        # With no in-scan renormalisation, the remainder's shift subsumes the quads' entry shift.
+        shifts = not (T % 4 and rn == 0)
+        m = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, words,
+                         offset, strides, 0, T // 4, rn, shifts)
     if T % 4:
         m = launch_block(code, numeric, m, symbols, words, offset, strides, 4 * (T // 4), T % 4,
                          metric_dtype)
@@ -234,15 +266,28 @@ def _fields(counter, mode, code, numeric, metrics, symbols, lead, metric_dtype):
     dev = metrics.device
     offset = torch.zeros((B,), dtype=torch.int32, device=dev)
     m = metrics
-    if lead:
+    entry = None
+    if lead in (3, 7) and T > lead:
+        # The lead steps as one launch (a 3-step tri, or a quad and a tri),
+        # whose words are dropped and whose final frame minimum is the
+        # quads' entry shift, subsuming the lead's own shifts.
         dropped, strides = words_buffer(B, lead, W, False, dev)
-        m = launch_block(code, numeric, m, symbols, dropped, offset, strides, 0, lead, metric_dtype)
+        m, entry = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols,
+                                dropped, offset, strides, 0, lead // 4, 0, False, 3, fin=2)
+    elif lead:  # whole quads, then pairs; the shift after the lead steps subsumes theirs
+        dropped, strides = words_buffer(B, lead, W, False, dev)
+        if lead >= 4:
+            m = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, dropped,
+                             offset, strides, 0, lead // 4, 0, shifts=False)
+        if lead % 4:
+            m = launch_block(code, numeric, m, symbols, dropped, offset, strides, lead - lead % 4,
+                             lead % 4, metric_dtype, shifts=False)
     table = torch.empty(((T - lead) // width, width, B, W), dtype=torch.int32, device=dev)
     if T == lead:
         m, shift = _shift_to_zero(m)
         return m, table, offset + shift
     m = launch_quads(counter, mode, code, numeric, m, symbols, table, offset, (0, 0), lead,
-                     (T - lead) // 4, rn * (width // 4))
+                     (T - lead) // 4, rn * (width // 4), entry=entry)
     return m, table, offset
 
 
@@ -251,8 +296,9 @@ def acs_update_large4_fields(code: CodeSpec, numeric: NumericSpec, metrics: torc
                              metric_dtype: str | None = None):
     """Depth-4 update that returns the width-4 walk table and no words.
 
-    The first ``lead`` steps run on ``acs_update_large2``; the other
-    ``T - lead`` (a multiple of 4) on the quad kernel in fields mode.
+    The first ``lead`` steps run on the words form (their words dropped);
+    the other ``T - lead`` (a multiple of 4) on the octet kernel in fields
+    mode.
 
     Returns ``(metrics [B, S] int32, f4 [(T - lead) / 4, 4, B, W] int32,
     offset [B] int32)``; window ``p`` of ``f4`` covers steps ``[lead + 4p,
@@ -270,9 +316,9 @@ def acs_update_large4_fields8(code: CodeSpec, numeric: NumericSpec, metrics: tor
                               metric_dtype: str | None = None):
     """Depth-4 update over quad pairs that returns the width-8 walk table.
 
-    Of each pair the first quad leaves its f4 table as the only hand-off and
-    the second, starting from those fields at its predecessors, writes the
-    8-step fields.  ``T - lead`` must be a multiple of 8.
+    Each quad pair is one octet launch: the first quad's 4-bit fields cross
+    the octet's transpose in shared memory and seed the second's, which
+    writes the 8-step fields.  ``T - lead`` must be a multiple of 8.
 
     Returns ``(metrics [B, S] int32, f8 [(T - lead) / 8, 8, B, W] int32,
     offset [B] int32)``; window ``p`` of ``f8`` covers steps ``[lead + 8p,

@@ -213,6 +213,26 @@ def test_state_block_and_small_k_refused():
     assert plk.acs_update_large(pc, pn, m, s)[1].shape == (1, 4, 2)
 
 
+@pytest.mark.parametrize("K,batch,blocks", [
+    (8, 1, 1), (9, 64, 1), (12, 8, 1), (13, 8, 1), (14, 8, 4), (14, 64, 2), (14, 100, 1),
+    (15, 1, 4), (15, 32, 4), (15, 64, 2), (15, 128, 1), (15, 256, 1), (16, 8, 4), (16, 64, 2),
+    (16, 100, 2), (17, 8, 4), (17, 64, 4), (18, 8, 0), (24, 8, 0)])
+def test_chip_blocks(K, batch, blocks):
+    """Blocks a frame of the on-chip pair kernel, by trellis and batch: one
+    up to K=13; from K=14 (Cassini: 15) four blocks a frame up to 32 frames,
+    two up to 64 (the decoder's path), else the fewest that fit; from K=18
+    the frame no longer fits and the block streams.  Where it fits, a
+    block's two metric buffers stay within the card's 227 KB of shared
+    memory a block, and its quads fill at least a warp and a pair's table
+    entries (R=3: 16)."""
+    pc = ported(J.CodeSpec("k", K, 3, tuple((1 << (K - 1)) | (2 * r + 1) for r in range(3))),
+                J.soft8_spec(3))[0]
+    assert plk2.chip_blocks(pc, batch) == blocks
+    if blocks:
+        assert 2 * 4 * pc.num_states // blocks <= plk2.CHIP_STATES * 8 <= 227 * 1024 - 8192
+        assert pc.num_states // blocks // 4 >= 32
+
+
 # -- on the card: each CUDA kernel against its plain version ---------------
 
 @pytest.fixture
@@ -235,7 +255,8 @@ CARD_CASES = [
 @pytest.mark.parametrize("jc,spec,noise,n_bytes,steps", CARD_CASES)
 def test_cuda_large2(cuda_device, jc, spec, noise, n_bytes, steps, time_major):
     """``steps``: cut the block to that many steps (92: 46 pairs, so the
-    renormalisation after the last pair runs ``frame_sub_kernel``)."""
+    renormalisation follows the last pair and shifts the metrics as they
+    leave the on-chip kernel).  One launch a call."""
     jn = getattr(J, spec)() if spec == "ka9q_offset_binary_spec" else getattr(J, spec)(jc.R)
     pc, pn = ported(jc, jn)
     sym, m0 = inputs(jc, jn, 5, n_bytes, noise, seed=11, lift=(2, 30))
@@ -257,3 +278,86 @@ def test_cuda_large(cuda_device, jc):
     got = plk.acs_update_large(pc, pn, m, s.contiguous())
     want = plk.acs_update_large_ref(pc, pn, m, s)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def cassini_card(spec, B, noise, seed):
+    jn = getattr(J, spec)(6)
+    pc, pn = ported(J.VITERBI615, jn)
+    sym, m0 = inputs(J.VITERBI615, jn, B, 256, noise, seed=seed)
+    return pc, pn, torch.from_numpy(m0).cuda(), torch.from_numpy(sym).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 2062), (3, 2062), (64, 2062), (64, 1576), (3, 1577)],
+                         ids=["b1", "b3", "b64", "b64_788_pairs", "b3_788_pairs_tail"])
+def test_cuda_large2_cassini_on_chip(cuda_device, B, T):
+    """Cassini soft8 on the on-chip form, one launch a call (four blocks a
+    frame at B=1 and 3, two at B=64): whole frames (shifts after pairs 393
+    and 787) and the 788-pair block, whose second shift follows the last
+    pair (with and without the odd tail)."""
+    pc, pn, m, s = cassini_card("soft8_spec", B, 3, seed=B + T)
+    s = s[:, :T].contiguous()
+    assert plk2.chip_blocks(pc, B) == (4 if B <= 32 else 2)
+    assert plk2.renorm_schedule(pc, pn, T)[1] == 394
+    n = dict(_build.LAUNCHES)
+    got = plk2.acs_update_large2(pc, pn, m, s)
+    want = plk2.acs_update_large2_ref(pc, pn, m, s)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _build.LAUNCHES["acs_update_large2"] == n["acs_update_large2"] + 1
+    assert _build.LAUNCHES["acs_update_large"] == n["acs_update_large"]
+    if T == 1576:
+        assert (got[0].amin(dim=1) == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_large2_cassini_soft16_time_major(cuda_device):
+    """soft16: int32 schedule with no renormalisation; time-major words."""
+    pc, pn, m, s = cassini_card("soft16_spec", 16, 160, seed=5)
+    got = plk2.acs_update_large2(pc, pn, m, s, time_major=True)
+    want = plk2.acs_update_large2_ref(pc, pn, m, s, time_major=True)
+    assert got[1].shape == (2062, 16, 512)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_large2_cassini_want_g2(cuda_device):
+    """The G_2 planes of a whole Cassini frame from the on-chip form."""
+    pc, pn, m, s = cassini_card("soft8_spec", 4, 3, seed=6)
+    got = plk2.acs_update_large2(pc, pn, m, s, want_g2=True)
+    want = plk2.acs_update_large2_ref(pc, pn, m, s, want_g2=True)
+    assert got[2].shape == (4, 1031, 512)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,polys,on_chip", [
+    (17, 3, (0o247153, 0o326715, 0o351127), True), (18, 3, (0o647153, 0o526715, 0o751127), False),
+    (8, 4, "both", True), (8, 5, "both", False), (9, 6, "one", False), (10, 6, "both", True),
+    (10, 7, "both", False), (11, 7, "one", True), (11, 8, "one", False)],
+    ids=["k17_on_chip", "k18_streams", "k8r4", "k8r5", "k9r6_one_end", "k10r6", "k10r7",
+         "k11r7_one_end", "k11r8_one_end"])
+def test_cuda_large2_fit_edge(cuda_device, K, R, polys, on_chip):
+    """The edges of the on-chip form, each held against the plain version
+    with its odd tail and G_2 planes: R=3 codes at the largest K whose frame
+    fits on chip (a cluster of four blocks) and at the next; small trellises
+    of wide codes, on chip where a block has at least as many threads as a
+    pair has table entries (2^(R+1)), streaming where it has fewer (random
+    codes that tap both register ends, or not).  Streaming runs the pair
+    launch loop, then the odd tail on the step kernel."""
+    rng = np.random.default_rng(K * 10 + R)
+    if isinstance(polys, str):
+        top = 1 << (K - 1)
+        polys = tuple(int(top * (polys == "both" or r > 0) | rng.integers(0, top) | 1)
+                      for r in range(R))
+    jc, jn = J.CodeSpec(f"k{K}r{R}", K, R, polys), J.ka9q_offset_binary_spec()
+    pc, pn = ported(jc, jn)
+    assert (plk2.chip_blocks(pc, 3) > 0) == on_chip
+    s = torch.from_numpy(rng.integers(jn.soft_low, jn.soft_high + 1, size=(3, 21, R))
+                         .astype(np.int32)).cuda()
+    m = torch.from_numpy(rng.integers(5, 60, size=(3, pc.num_states)).astype(np.int32)).cuda()
+    n = dict(_build.LAUNCHES)
+    got = plk2.acs_update_large2(pc, pn, m, s, want_g2=True)
+    want = plk2.acs_update_large2_ref(pc, pn, m, s, want_g2=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _build.LAUNCHES["acs_update_large2"] == n["acs_update_large2"] + 1
+    assert _build.LAUNCHES["acs_update_large"] == n["acs_update_large"] + (0 if on_chip else 1)

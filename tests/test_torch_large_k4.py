@@ -285,3 +285,59 @@ def test_cuda_want_g2(cuda_device, jc, spec, time_major):
     got = plk2.acs_update_large2(pc, pn, m, s, time_major=time_major, want_g2=True)
     want = plk2.acs_update_large2_ref(pc, pn, m, s, time_major=time_major, want_g2=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+ICE_FORMS = {"words": ("acs_update_large4", ()), "fields": ("acs_update_large4_fields", (3,)),
+             "fields8": ("acs_update_large4_fields8", (7,))}
+
+
+def ice_card(spec, B, T, seed):
+    return card_inputs(J.VITERBI224, spec, B, T, seed)
+
+
+def held(name, pc, pn, m, s, extra=()):
+    """One call of the kernel form ``name`` against its plain version, and
+    the launch it counted."""
+    n = _build.LAUNCHES[name]
+    got = getattr(plk4, name)(pc, pn, m, s, *extra)
+    want = getattr(plk4, name + "_ref")(pc, pn, m, s, *extra)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert _build.LAUNCHES[name] == n + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(ICE_FORMS))
+def test_cuda_ice_soft16_octets(cuda_device, form):
+    """ICE soft16 B=2 T=87 in each form: renormalisation every 7 quads, so
+    the shift after quad 6 falls between the two halves of the octet of
+    quads 6-7 (taken at the transpose), and the one after quad 20 follows
+    the lone quad; the f8 form every 3 octets, its last after the last."""
+    name, lead = ICE_FORMS[form]
+    pc, pn, m, s = ice_card("soft16_spec", 2, 87, seed=3)
+    assert plk4.renorm_schedule4(pc, pn, 87)[1] == 7
+    assert plk4.renorm_schedule4(pc, pn, 87, None, 8)[1] == 3
+    got = held(name, pc, pn, m, s, lead)
+    assert (got[2] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [83, 84, 85, 86, 87])
+def test_cuda_ice_remainders(cuda_device, T):
+    """ICE soft8 B=1, words: 20 quads (ten octets) and the remainder 3, or
+    21 quads (ten octets and a lone quad) and the remainders 0-3."""
+    pc, pn, m, s = ice_card("soft8_spec", 1, T, seed=T)
+    held("acs_update_large4", pc, pn, m, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(ICE_FORMS))
+@pytest.mark.parametrize("jc,spec,B,T,leads", [
+    pytest.param(K12, "soft8_spec", 64, 91, (3, 3), id="k12_b64"),
+    pytest.param(K13R1, "soft8_spec", 16, 100, (0, 4), id="k13_rate1_b16")])
+def test_cuda_small_k_octets(cuda_device, form, jc, spec, B, T, leads):
+    """K=12 (eight octets, one block a frame) and K=13 at R=1 (sixteen) at the sizes the
+    card smoke test holds them: each form against its plain version."""
+    name = ICE_FORMS[form][0]
+    pc, pn, m, s = card_inputs(jc, spec, B, T, seed=jc.K)
+    held(name, pc, pn, m, s, () if form == "words" else (leads[form == "fields8"],))
