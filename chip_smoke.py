@@ -6,7 +6,10 @@ Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
 together), holds each of the ten kernels against its plain PyTorch version on
 the card (the in-place pair and the tracebacks in every form: K=3..15,
 R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
-tap both register ends, chained halves), then drives six paths -- through ``ViterbiDecoder(backend="cuda")``,
+tap both register ends, chained halves; the state-order ACS through both of
+its entry points at K=2..10, R=1..6, batches of 1, 33 and 130; the large-K
+launch plans from entry metrics at the int32 limit), then drives six paths --
+through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns`` and the benchmark runner -- each with the launch counts
 zeroed just before it and read just after:
 
@@ -33,7 +36,9 @@ zeroed just before it and read just after:
   all six codes at its default batches and the reference's frame sizes,
   every numeric spec, 16 rows of reference-schema JSON with bit error rate 0.
 
-Then it times the kernels and the decoders' phases with CUDA events.  Every
+Then it times the kernels and the decoders' phases with CUDA events, and
+counts the launches a call of the state-order and large-K updates from a
+profiler trace.  Every
 number line carries the card's name and power limit.  The last three lines
 are a JSON object listing the kernels, the card's name and power limit, and a
 JSON object ``{"ok": true, "device": ...}``.
@@ -70,7 +75,7 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     soft8_spec,
     soft16_spec,
 )
-from ka9q_viterbi_comparison_tpu_torch.harness import runner  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.harness import probe_tb, runner  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops import radix_planes  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
@@ -450,8 +455,21 @@ def phase_kernels_large(tag, rng, errs):
                                            inplace.chainback_inplace,
                                            inplace.chainback_inplace_ref,
                                            (cas, d, end, T, 0), T, ("chainback_inplace", "k15")))
+    near_limit(rng, errs)
     torch.cuda.empty_cache()
     print(f"[{tag}] large-K kernels and K=15 shapes vs plain versions: all bit-identical")
+
+
+def near_limit(rng, errs):
+    """The large-K updates from entry metrics at the int32 limit, through
+    every route of their launch plans (``probe_tb.near_limit_cases``), each
+    against its plain version, which shifts them to zero first as the JAX
+    package does: a call whose first launch skipped that shift would wrap."""
+    for mod, name, args in probe_tb.near_limit_cases(rng):
+        e, _ = compare_large(f"{name} {args[0].name} T={args[3].shape[1]} lead={args[4:]} entry "
+                             f"metrics near the int32 limit", getattr(mod, name),
+                             getattr(mod, name + "_ref"), args)
+        errs[name] = max(errs[name], e)
 
 
 def phase_kernels_quad(tag, rng, errs):
@@ -622,6 +640,60 @@ def phase_kernels_inplace_forms(tag, rng, errs):
                              f"memory, ops/cuda/inplace.py says {want}")
     torch.cuda.empty_cache()
     print(f"[{tag}] in-place ACS forms and both traceback forms vs plain versions: all "
+          f"bit-identical")
+
+
+def phase_kernels_tb_forms(tag, rng, errs):
+    """The state-order ACS through both entry points (the warp form up to
+    K=9, the block forms at K=10), each case against its plain version and
+    ``acs_update_tb2`` also against the ``acs_update_tb`` kernel, on random
+    symbols and random entry metrics: K=2..10, R=1..6, codes with and without
+    the complement form, ``t_real`` odd, below 32 and not a multiple of 32,
+    batches of 1, 33 and 130 that do not fill a block's two warps."""
+    cases = [  # code, numeric, B, T, t_real
+        (CodeSpec("k2r2", 2, 2, (0o3, 0o1)), soft8_spec(2), 33, 40, 37),
+        (CodeSpec("k3r2", 3, 2, (0o7, 0o5)), soft8_spec(2), 1, 100, 99),
+        (CodeSpec("k4r1", 4, 1, (0o15,)), soft8_spec(1), 130, 64, 31),
+        (CodeSpec("k5r2", 5, 2, (0o23, 0o35)), soft8_spec(2), 33, 100, 77),
+        (CodeSpec("k6r3", 6, 3, (0o53, 0o75, 0o47)), soft8_spec(3), 130, 100, 100),
+        (CODE, soft8_spec(2), 1, 300, 299),
+        (VITERBI47, soft8_spec(4), 33, 300, 257),
+        (CodeSpec("k7r6", 7, 6, (0o155, 0o117, 0o127, 0o171, 0o133, 0o165)), soft8_spec(6), 130,
+         100, 95),
+        (CodeSpec("k7oneend", 7, 2, (0o155, 0o056)), soft8_spec(2), 130, 150, 149),
+        (CodeSpec("k8r5", 8, 5, (0o247, 0o371, 0o225, 0o353, 0o311)), soft8_spec(5), 33, 100, 63),
+        (VITERBI29, soft16_spec(2), 130, 300, 300),
+        (VITERBI49, soft8_spec(4), 1, 200, 199),
+        (CodeSpec("k9oneend", 9, 3, (0o557, 0o256, 0o711)), soft8_spec(3), 33, 150, 150),
+        (CodeSpec("k10r2", 10, 2, (0o1167, 0o1546)), soft8_spec(2), 33, 100, 99),
+    ]
+    for code, numeric, B, T, t_real in cases:
+        sym = torch.from_numpy(rng.integers(numeric.soft_low, numeric.soft_high + 1,
+                                            size=(T, code.R, B)).astype(np.int32)).cuda()
+        m = torch.from_numpy(rng.integers(0, 60, size=(code.num_states, B)).astype(np.int32)).cuda()
+        label = f"{code.name} {numeric.name} B={B} T={T} t_real={t_real}"
+        e, (m_t, d_t) = compare_update(f"acs_update_tb {label}", kernels.acs_update_tb,
+                                       kernels.acs_update_tb_ref, (code, numeric, m, sym, t_real),
+                                       t_real)
+        errs["acs_update_tb"] = max(errs["acs_update_tb"], e)
+        if code.K < 3:
+            continue
+        e, (m_k, d_k) = compare_update(f"acs_update_tb2 {label}", kernels2.acs_update_tb2,
+                                       kernels2.acs_update_tb2_ref,
+                                       (code, numeric, m, sym, t_real), t_real)
+        e = max(e, check(f"acs_update_tb2 {label} vs the acs_update_tb kernel",
+                         max(max_abs_err(m_k, m_t), max_abs_err(d_k[:t_real], d_t[:t_real]))))
+        errs["acs_update_tb2"] = max(errs["acs_update_tb2"], e)
+    # What the Python side says of the launch is what the launcher does.
+    fns = _build.library()
+    for code, _, _, _, _ in cases:
+        for depth, want in ((1, kernels.acs_smem_bytes(code)), (2, kernels2.tb2_smem_bytes(code))):
+            got = fns["viterbi_acs_tb_smem"](code.K, code.R, depth)
+            if got != want:
+                raise SystemExit(f"FAIL: {code.name}: the launcher takes {got} bytes of shared "
+                                 f"memory at depth {depth}, ops/cuda says {want}")
+    torch.cuda.empty_cache()
+    print(f"[{tag}] state-order ACS forms (both entry points) vs plain versions: all "
           f"bit-identical")
 
 
@@ -991,8 +1063,29 @@ def phase_timing(tag, rng):
     rows = {}
 
     shape = f"K=7 B={B_TB} T={T}"
+    tb_args = compared_args("acs_update_tb")
     kernel_row(tag, rows, "acs_update_tb", kernels.acs_update_tb, kernels.acs_update_tb_ref,
-               compared_args("acs_update_tb"), shape, acs_bound_ms(B_TB, T), 20)
+               tb_args, shape, acs_bound_ms(B_TB, T), 20, steps=T)
+    # One frame (the reference's own unit), and K=9 soft16 512-byte frames at
+    # B=64: frames of compared inputs, held against the compared calls' frames.
+    _, k9_numeric, k9_m0, k9_s, T9 = compared_args("acs_update_tb2", "k9")
+    for code, num, m0, s, t, label in (
+            (CODE, numeric, tb_args[2], tb_args[3], T, f"K=7 B=1 T={T}"),
+            (VITERBI29, k9_numeric, k9_m0, k9_s, T9, f"K=9 soft16 B={B_TB} T={T9}")):
+        B = 1 if code is CODE else B_TB
+        m_b, s_b = m0[:, :B].contiguous(), s[..., :B].contiguous()
+        whole = (kernels.acs_update_tb if code is CODE else kernels2.acs_update_tb2)(
+            code, num, m0, s, t)
+        got = kernels.acs_update_tb(code, num, m_b, s_b, t)
+        torch.cuda.synchronize()
+        check(f"acs_update_tb {label} vs frames of the compared call",
+              max(max_abs_err(got[0], whole[0][:, :B]), max_abs_err(got[1][:t], whole[1][:t, :, :B])))
+        del whole, got
+        ms = timed_ms(lambda: kernels.acs_update_tb(code, num, m_b, s_b, t), 20)
+        bnd = acs_bound_ms(B, t, code)
+        print(f"[{tag}] acs_update_tb {label}: kernel {ms:.4f} ms = {1e6 * ms / t:.1f} ns a step, "
+              f"bound {bnd[0]:.6f} ms ({bnd[1]}), {100 * bnd[0] / ms:.2f}% of bound (frames "
+              f"identical to the compared call's)")
     kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
                compared_args("chainback_tb"), shape, chainback_bound_ms(B_TB, T, False), 20, steps=T)
     shape = f"K=7 B={B_INPLACE} T={T}"
@@ -1021,8 +1114,9 @@ def phase_timing(tag, rng):
     kernel_row(tag, rows, "chainback_inplace", inplace.chainback_inplace,
                inplace.chainback_inplace_ref, compared_args("chainback_inplace", "k9"), shape,
                chainback_bound_ms(B, T9, True), 20, key="k9", steps=T9)
-    decoder_phases(tag, CODE, numeric, B_INPLACE, FRAME_BYTES, rng,
-                   f"K=7 ({'in-place' if dispatch.use_inplace(CODE, B_INPLACE, 'cuda') else 'state-order'})")
+    for B in (B_INPLACE, B_TB):
+        decoder_phases(tag, CODE, numeric, B, FRAME_BYTES, rng,
+                       f"K=7 ({'in-place' if dispatch.use_inplace(CODE, B, 'cuda') else 'state-order'})")
     return rows
 
 
@@ -1144,10 +1238,15 @@ PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_ste
                 "frame_sub_kernel")
 
 
-def trace_launches(fn) -> dict[str, int]:
-    """The large-K kernels' launches in one call of ``fn``, as a profiler
-    trace of the device records them: kernel (with its template arguments)
-    -> launches.  Empty where the profiler records no kernel."""
+# The state-order ACS kernels.
+TB_KERNELS = ("acs_tb_warp_kernel", "acs_tb_block_kernel", "acs_tb2_block_kernel")
+
+
+def trace_launches(fn, names=PASS_KERNELS) -> dict[str, int]:
+    """The launches of the kernels ``names`` (the large-K kernels by default)
+    in one call of ``fn``, as a profiler trace of the device records them:
+    kernel (with its template arguments) -> launches.  Empty where the
+    profiler records no kernel."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1157,7 +1256,7 @@ def trace_launches(fn) -> dict[str, int]:
     counts = {}
     for e in prof.key_averages():
         hit = re.search(r"(\w+)(<[^()]*>)?\(", e.key)
-        if hit and hit.group(1) in PASS_KERNELS:
+        if hit and hit.group(1) in names:
             name = hit.group(1) + (hit.group(2) or "")
             counts[name] = counts.get(name, 0) + e.count
     return counts
@@ -1177,6 +1276,13 @@ def phase_launch_trace(tag, rng, quads):
     forms' quads from ``phase_timing_quad``'s times (a shift pass's time
     included) over their ACS launches.  Last, so that the profiler runs
     after every timing."""
+    for name, fn, B in (("acs_update_tb", kernels.acs_update_tb, B_TB),
+                        ("acs_update_tb2", kernels2.acs_update_tb2, B_TB2)):
+        _, sym = noisy_symbols(soft8_spec(2), B, rng, 3)
+        s, m = trb(sym), metrics0(CODE, soft8_spec(2), B)
+        counts = trace_launches(lambda: fn(CODE, soft8_spec(2), m, s, s.shape[0]), TB_KERNELS)
+        print(f"[{tag}] {name} K=7 B={B} T={s.shape[0]}: {launch_text(counts)} a call")
+        del sym, s, m
     cas, s6 = VITERBI615, soft8_spec(6)
     _, sym = noisy_symbols(s6, B_CAS_LARGE, rng, 3, cas, CAS_BYTES)
     m = metrics0(cas, s6, B_CAS_LARGE, state_major=False)
@@ -1297,6 +1403,8 @@ def main() -> int:
     done("depth-4 comparisons")
     phase_kernels_tb2(tag, rng, errs)
     done("depth-2 comparisons")
+    phase_kernels_tb_forms(tag, rng, errs)
+    done("state-order forms comparisons")
     phase_kernels_inplace_forms(tag, rng, errs)
     done("in-place forms comparisons")
     launches = phase_decode(tag, rng)

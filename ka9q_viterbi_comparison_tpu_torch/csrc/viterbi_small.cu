@@ -2,8 +2,10 @@
 // small-trellis decode path, bound to Python with ctypes through the plain
 // extern "C" launchers at the end of this file.
 //
-//   acs_tb_kernel                   replaces ops/pallas/kernels.py  acs_update_tb   (_acs_kernel)
-//   acs_tb2_kernel                  replaces ops/pallas/kernels2.py acs_update_tb2  (_acs_kernel2)
+//   acs_tb_warp_kernel (K <= 9), acs_tb_block_kernel (K = 10..15)
+//                                   replace  ops/pallas/kernels.py  acs_update_tb   (_acs_kernel)
+//   acs_tb_warp_kernel (K <= 9), acs_tb2_block_kernel (K = 10..13)
+//                                   replace  ops/pallas/kernels2.py acs_update_tb2  (_acs_kernel2)
 //   chainback_kernel<ROT=false>     replaces ops/pallas/kernels.py  chainback_tb    (_chainback_kernel)
 //   acs_inplace_warp_kernel, acs_inplace_block_kernel
 //                                   replace  ops/pallas/inplace.py  acs_update_inplace (_acs_inplace_kernel)
@@ -24,10 +26,11 @@
 // between a metric and its successor (a shuffle or a shared-memory round
 // trip, two adds, a compare, a barrier) is paid T times and nothing hides it,
 // and a lone warp starts only an instruction every four cycles or so.
-// The state-order kernels (acs_tb_kernel, acs_tb2_kernel) keep a block a
-// frame with metrics in shared memory and symbols staged 32 steps at a time.
-// The in-place kernels, which carry the main path, are built around that
-// latency: see the note above them.  The traceback is T dependent steps a
+// The ACS kernels of every route (in-place and state order, K <= 9) are
+// built around that: see the notes above WarpAcs and acs_tb_warp_kernel.
+// The state-order block forms (acs_tb_block_kernel, acs_tb2_block_kernel)
+// serve only K >= 10, which no route sends them: a block a frame, metrics in
+// shared memory, symbols staged 32 steps at a time.  The traceback is T dependent steps a
 // frame and is bound by the length of that chain alone: see the note above
 // the traceback kernels.
 //
@@ -85,7 +88,7 @@ __device__ __forceinline__ void pack_decisions(const unsigned char* dd, int* __r
   }
 }
 
-// Shared-memory carve-up of acs_tb_kernel.
+// Shared-memory carve-up of acs_tb_block_kernel.
 struct Smem {
   int* m;             // metrics: 2*S (state order, ping-pong)
   int* et;            // S/2 packed transition table
@@ -104,10 +107,11 @@ __device__ __forceinline__ Smem carve(int nm, int S2, int R, int S32) {
   return s;
 }
 
-// State-order ACS (counterpart of kernels.py _acs_kernel).  Grid: one block
-// per frame.  New state 2*s2 + b; its decision lands at bit s%32 of word s/32.
+// State-order ACS, K = 10..15 (counterpart of kernels.py _acs_kernel; K <= 9
+// runs acs_tb_warp_kernel).  Grid: one block per frame.  New state 2*s2 + b;
+// its decision lands at bit s%32 of word s/32.
 template <int R>
-__global__ void acs_tb_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
+__global__ void acs_tb_block_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                               const int* __restrict__ etab, int* __restrict__ metrics_out,
                               int* __restrict__ dec, int K, int low, int hl, int B,
                               int t_real) {
@@ -178,8 +182,9 @@ __device__ __forceinline__ unsigned butterfly(int e, int base, const int* coef, 
   return bits;
 }
 
-// Depth-2 state-order ACS (counterpart of kernels2.py _acs_kernel2): the
-// contract of acs_tb_kernel, two steps a loop pass.  Grid: one block per
+// Depth-2 state-order ACS, K = 10..13 (counterpart of kernels2.py
+// _acs_kernel2; K <= 9 runs acs_tb_warp_kernel): the contract of
+// acs_tb_block_kernel, two steps a loop pass.  Grid: one block per
 // frame, S/4 working threads (whole warps; lanes past S/4 only take part in
 // the barriers and shuffles, so at K=7 half of the one warp works).  Thread j
 // owns predecessors {j, j+S/4, j+S/2, j+3S/4}.  Step A gives it the new
@@ -194,7 +199,7 @@ __device__ __forceinline__ unsigned butterfly(int e, int base, const int* coef, 
 // that share a word OR their bits with shuffles and the first stores.  An
 // odd t_real ends with one step A alone, whose states are stored at 2j+b.
 template <int R>
-__global__ void acs_tb2_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
+__global__ void acs_tb2_block_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                                const int* __restrict__ etab, int* __restrict__ metrics_out,
                                int* __restrict__ dec, int K, int low, int hl, int B,
                                int t_real) {
@@ -353,7 +358,82 @@ __device__ __forceinline__ void cp_async_wait() {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kAcsWarpThreads = 128;  // most threads of a block of the warp form
-extern __shared__ int smem_w[];       // the warp form's shared memory, by word index
+extern __shared__ int smem_w[];       // the warp forms' shared memory, by word index
+
+// A warp's penalty tables, shared by the two warp forms (in-place and state
+// order): P(x) for x < 2^R at each step u of a stage of STG steps, two
+// tables (a stage's, and the next one's).  In rows (the in-place form's
+// layout: row u holds P(0 .. 2^R-1), 2^R + 1 words a row) or, with COLS, in
+// columns (column x holds P(x) of steps 0 .. STG-1, STG + 1 words a column:
+// a look-up is one load at an immediate offset from a per-lane pointer to
+// its column).  Either stride is odd, so neither the table writes (lane =
+// step) nor the reads conflict.  The table of stage s+1 is built from
+// symbols staged by cp.async, at the top of stage s; the symbols of stage
+// s+2 are fetched then.  Step t of the frame is step t + vlo of virtual time
+// (the in-place form's rotation offset; 0 in state order).
+template <int STG, bool COLS = false>
+struct WarpStages {
+  static constexpr int XS = COLS ? STG + 1 : 1;  // words between P(x) and P(x+1) of a step
+  int* tab;    // [2][table]
+  int* ysm;    // [2][R][32] staged symbols, lane = step
+  const int* sym;
+  int R, US, BUF, low, hl, B, b, lane, vlo, t_real;
+
+  // Words of shared memory one warp takes.
+  static __host__ __device__ constexpr int words(int R) {
+    return 2 * (COLS ? (1 << R) * (STG + 1) : STG * ((1 << R) + 1)) + 2 * 32 * R;
+  }
+  __device__ __forceinline__ WarpStages(int* base, const int* sym_, int R_, int low_, int hl_,
+                                        int B_, int b_, int lane_, int vlo_, int t_real_)
+      : tab(base), sym(sym_), R(R_), US(COLS ? 1 : (1 << R_) + 1),
+        BUF(COLS ? (1 << R_) * (STG + 1) : STG * ((1 << R_) + 1)), low(low_), hl(hl_), B(B_),
+        b(b_), lane(lane_), vlo(vlo_), t_real(t_real_) {
+    ysm = tab + 2 * BUF;
+  }
+
+  // P(x) of step u of stage s is column(s, x)[u] (COLS).
+  __device__ __forceinline__ const int* column(int s, int x) const {
+    return tab + (s & 1) * BUF + x * XS;
+  }
+  __device__ __forceinline__ void fetch(int s) const {  // symbols of stage s, row = lane
+    const int t = min(max(s * STG + lane - vlo, 0), t_real - 1);
+    for (int r = 0; r < R; ++r)
+      cp_async4(&ysm[((s & 1) * R + r) * 32 + lane], &sym[((size_t)t * R + r) * B + b]);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void build(int s) const {  // the penalties of stage s
+    if (lane < STG) {
+      int* t = tab + (s & 1) * BUF + lane * US;
+      const int* y = ysm + (s & 1) * R * 32 + lane;
+      int base = 0;
+      for (int r = 0; r < R; ++r) base += y[r * 32] - low;
+      t[0] = base;
+      for (int r = 0; r < R; ++r) {
+        const int coef = hl - 2 * y[r * 32];
+        for (int x = 0; x < (1 << r); ++x) t[(x + (1 << r)) * XS] = t[x * XS] + coef;
+      }
+    }
+  }
+  // stage(s) for s = 0 .. nstages-1, each with its table ready.
+  template <class F>
+  __device__ __forceinline__ void run(int nstages, F&& stage) const {
+    fetch(0);
+    cp_async_wait<0>();
+    build(0);
+    fetch(1);
+    for (int s = 0; s < nstages; ++s) {
+      if (s + 1 < nstages) {
+        cp_async_wait<0>();
+        build(s + 1);
+        fetch(s + 2);
+      }
+      __syncwarp();
+      stage(s);
+      __syncwarp();
+    }
+    cp_async_wait<0>();
+  }
+};
 
 template <int K, bool COMP>
 struct WarpAcs {
@@ -446,9 +526,8 @@ acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restric
   const int lane = a.lane, PS = a.PS;
 #pragma unroll
   for (int j = 0; j < 5; ++j) a.sgn[j] = ((lane >> j) & 1) ? 1 : -1;
-  a.pen = warp * (2 * STG * PS + 2 * 32 * R);
-  int* ysm = smem_w + a.pen + 2 * STG * PS;  // [2][R][32] staged symbols, lane = step
-  if (b >= B) return;                        // a warp with no frame (whole warps only)
+  a.pen = warp * WarpStages<STG>::words(R);
+  if (b >= B) return;  // a warp with no frame (whole warps only)
 
 #pragma unroll
   for (int r = 0; r < NR; ++r)
@@ -464,39 +543,8 @@ acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restric
 
   // Virtual time v = t + p0 (p0 < K-1), so that a rotation starts at phase 0.
   const int vlo = p0, vhi = p0 + t_real;
-  const int nstages = (vhi + STG - 1) / STG;
-
-  auto fetch = [&](int s) {  // symbols of stage s, row = lane
-    const int t = min(max(s * STG + lane - vlo, 0), t_real - 1);
-    for (int r = 0; r < R; ++r)
-      cp_async4(&ysm[((s & 1) * R + r) * 32 + lane], &sym[((size_t)t * R + r) * B + b]);
-    cp_async_commit();
-  };
-  auto build = [&](int s) {  // penalty rows of stage s from the staged symbols
-    if (lane < STG) {
-      int* tab = smem_w + a.table(s & 1, lane);
-      const int* y = ysm + (s & 1) * R * 32 + lane;
-      int base = 0;
-      for (int r = 0; r < R; ++r) base += y[r * 32] - low;
-      tab[0] = base;
-      for (int r = 0; r < R; ++r) {
-        const int coef = hl - 2 * y[r * 32];
-        for (int x = 0; x < (1 << r); ++x) tab[x + (1 << r)] = tab[x] + coef;
-      }
-    }
-  };
-
-  fetch(0);
-  cp_async_wait<0>();
-  build(0);
-  fetch(1);
-  for (int s = 0; s < nstages; ++s) {
-    if (s + 1 < nstages) {
-      cp_async_wait<0>();
-      build(s + 1);
-      fetch(s + 2);
-    }
-    __syncwarp();
+  const WarpStages<STG> st(smem_w + a.pen, sym, R, low, hl, B, b, lane, vlo, t_real);
+  st.run((vhi + STG - 1) / STG, [&](int s) {
     const int v0 = s * STG;
     if (v0 >= vlo && v0 + STG <= vhi) {
       for (int rot = 0; rot < STG / NROT; ++rot)
@@ -505,9 +553,147 @@ acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restric
       for (int rot = 0; rot < STG / NROT; ++rot)
         a.template rotation<true>(s & 1, rot * NROT, v0 + rot * NROT, vlo, vhi);
     }
-    __syncwarp();
+  });
+
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+    if (32 * r + lane < S) metrics_out[(size_t)(32 * r + lane) * B + b] = a.m[r];
+}
+
+// ---------------------------------------------------------------------------
+// State-order ACS, K <= 9 (counterpart of kernels.py _acs_kernel and
+// kernels2.py _acs_kernel2): the function of acs_update_tb and acs_update_tb2
+// below the block forms' range.  New state n takes predecessors n>>1
+// (h = 0) and n>>1 + S/2 (h = 1) on input bit b = n & 1, with the patterns
+// of bytes b and 2 + b of etab[n>>1].
+//
+// What bounds it is what bounds the in-place warp form (see the note above
+// WarpAcs): one warp a frame issues an instruction every four cycles or so,
+// so a step costs its instruction count.  The design:
+//
+//  * A warp a frame, the frame's metrics in its registers in state order:
+//    lane = n % 32, register r = n / 32 (NR = S/32 registers, one below 32
+//    states).  Word r of a step in the canonical packing (bit n % 32 of word
+//    n / 32) is then __ballot_sync of the decisions of register r: no
+//    decision byte is stored and read back, and no block barrier is left in
+//    the step loop.
+//  * The permutation is paid by shuffles: new register r reads its two
+//    predecessors from registers r>>1 and (r>>1) + NR/2 of lane
+//    16*(r & 1) + lane/2 (one register and lanes lane/2, lane/2 + S/2 below
+//    64 states).  Those source lanes, and the penalty pattern of each
+//    branch, are per-(lane, register) constants from a host table
+//    (ops/cuda/kernels.py warp_lane_table), read once.
+//  * Penalties by look-up from the per-stage tables that the in-place form
+//    builds (WarpStages, 32 steps a stage), here in columns: each register's
+//    pattern picks a column at the top of a stage, and a look-up is one load
+//    at an immediate offset, eight steps unrolled a group.  With COMP the
+//    high branch pays R*(high - low) minus the low branch's penalty, else
+//    both are looked up.
+//
+// Two steps a pass (what acs_update_tb2 computes) was counted and not built:
+// in this layout a final state's four pre-pair predecessors come by four
+// shuffles, as two steps of one state each take, and step A's intermediates
+// would be computed twice (once for each of the two finals that read them);
+// a layout in which a lane owns the four finals of its four predecessors
+// (the block form's) needs the next pair's predecessors from one source lane
+// in four different registers, four shuffles a value, and leaves half the
+// warp idle at K=7.  So acs_update_tb2 launches this kernel for K <= 9.
+// ---------------------------------------------------------------------------
+
+constexpr int kTbWarpThreads = 64;  // two warps a block: a small batch spreads over SMs
+constexpr int kTbGroup = 8;         // steps unrolled a group
+
+template <int K, bool COMP>
+struct WarpTb {
+  static constexpr int S = 1 << (K - 1), NR = S >= 32 ? S / 32 : 1;
+  int m[NR];                     // metrics of states 32*r + lane
+  int slo[NR], shi[NR];          // lanes of each register's low and high predecessor
+  const int* pa[NR];             // this stage's column of the low branch's pattern
+  const int* pb[NR];             // ... and of the high branch's (read only without COMP)
+  int lane, csum;
+  bool live;                     // below 32 states, lanes >= S hold no state
+  bool storer;                   // lane r stores word r
+  int* dp;                       // where this lane's word of the next step goes
+  size_t dstep;                  // words from one step's row of `dec` to the next
+
+  // One step, u of the stage.  Three passes over the registers -- shuffles,
+  // arithmetic, ballots -- so that no shuffle waits behind the ballot of the
+  // register before it.
+  __device__ __forceinline__ void step(int u) {
+    int lo[NR], hi[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      lo[r] = __shfl_sync(kFull, m[NR > 1 ? r >> 1 : 0], slo[r]);
+      hi[r] = __shfl_sync(kFull, m[NR > 1 ? (r >> 1) + NR / 2 : 0], shi[r]);
+    }
+    bool d[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int po = pa[r][u];
+      const int c_lo = lo[r] + po, c_hi = COMP ? hi[r] - po + csum : hi[r] + pb[r][u];
+      d[r] = live && c_hi < c_lo;
+      m[r] = min(c_lo, c_hi);
+    }
+    unsigned myword = __ballot_sync(kFull, d[0]);
+#pragma unroll
+    for (int r = 1; r < NR; ++r) {
+      const unsigned word = __ballot_sync(kFull, d[r]);
+      if (lane == r) myword = word;
+    }
+    if (storer) *dp = (int)myword;
+    dp += dstep;
   }
-  cp_async_wait<0>();
+};
+
+template <int K, bool COMP>
+__global__ void __launch_bounds__(kTbWarpThreads)
+acs_tb_warp_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
+                   const int* __restrict__ lanetab, int* __restrict__ metrics_out,
+                   int* __restrict__ dec, int R, int low, int hl, int csum, int B, int t_real) {
+  using A = WarpTb<K, COMP>;
+  constexpr int S = A::S, NR = A::NR, STG = 32;
+  using Stages = WarpStages<STG, true>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;  // this warp's frame
+  const Stages st(smem_w + warp * Stages::words(R), sym, R, low, hl, B, b, lane, 0, t_real);
+  if (b >= B) return;  // a warp with no frame (whole warps only)
+
+  A a;
+  int ao[NR], ap[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int n = 32 * r + lane;
+    a.m[r] = n < S ? metrics_in[(size_t)n * B + b] : 0;
+    // low pattern | high pattern << 8 | low source lane << 16 | high source lane << 24
+    const unsigned e = (unsigned)lanetab[n];
+    ao[r] = e & 0xff;
+    ap[r] = (e >> 8) & 0xff;
+    a.slo[r] = (e >> 16) & 0xff;
+    a.shi[r] = e >> 24;
+  }
+  a.lane = lane;
+  a.csum = csum;  // R * (high - low): the penalties of a pattern and its complement add to it
+  a.live = S >= 32 || lane < S;
+  a.storer = lane < NR;
+  a.dp = dec + (size_t)lane * B + b;
+  a.dstep = (size_t)NR * B;
+
+  st.run((t_real + STG - 1) / STG, [&](int s) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      a.pa[r] = st.column(s, ao[r]);
+      a.pb[r] = COMP ? a.pa[r] : st.column(s, ap[r]);
+    }
+    const int n = min(STG, t_real - s * STG);
+    if (n == STG) {
+      for (int u0 = 0; u0 < STG; u0 += kTbGroup) {
+#pragma unroll
+        for (int k = 0; k < kTbGroup; ++k) a.step(u0 + k);
+      }
+    } else {
+      for (int u = 0; u < n; ++u) a.step(u);
+    }
+  });
 
 #pragma unroll
   for (int r = 0; r < NR; ++r)
@@ -906,32 +1092,82 @@ int acs_threads(int K) {
   return (n + 31) / 32 * 32;
 }
 
-template <int R>
-cudaError_t launch_acs(const int* m_in, const int* sym, const int* etab, int* m_out, int* dec,
-                       int K, int low, int hl, int B, int t_real, int smem,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      acs_tb_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---- the state-order ACS launchers ------------------------------------------
+struct TbArgs {
+  const int *m_in, *sym, *etab, *lanetab;
+  int *m_out, *dec;
+  int K, R, low, hl, B, t_real;
+  cudaStream_t stream;
+};
+
+int tb_warp_smem(int R) { return kTbWarpThreads / 32 * 4 * WarpStages<32, true>::words(R); }
+
+// Dynamic shared memory of one block of the state-order ACS launch, depth 1
+// or 2 (what ops/cuda/kernels.py acs_smem_bytes and kernels2.py
+// tb2_smem_bytes mirror).
+int tb_smem(int K, int R, int depth) {
+  const int S = 1 << (K - 1), W = S >= 32 ? S >> 5 : 1;
+  if (K <= 9) return tb_warp_smem(R);
+  if (depth == 2) return 4 * (2 * S + kStage * R);  // two metric buffers, staged symbols
+  return 4 * (2 * S + S / 2 + kStage * R) + 2 * W * 32;  // the carve-up of Smem
+}
+
+template <int K, bool COMP>
+cudaError_t launch_tb_warp(const TbArgs& a) {
+  const int wpb = kTbWarpThreads / 32, smem = tb_warp_smem(a.R);
+  auto kernel = acs_tb_warp_kernel<K, COMP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  acs_tb_kernel<R><<<B, acs_threads(K), smem, stream>>>(m_in, sym, etab, m_out, dec, K, low, hl,
-                                                        B, t_real);
+  kernel<<<(a.B + wpb - 1) / wpb, kTbWarpThreads, smem, a.stream>>>(
+      a.m_in, a.sym, a.lanetab, a.m_out, a.dec, a.R, a.low, a.hl, a.R * (a.hl - 2 * a.low), a.B,
+      a.t_real);
   return cudaGetLastError();
 }
 
-cudaError_t acs_dispatch(const int* m_in, const int* sym, const int* etab, int* m_out, int* dec,
-                         int K, int R, int low, int hl, int B, int t_real, int smem,
-                         cudaStream_t s) {
-  if (K < 2 || K > 15 || B < 1 || t_real < 1) return cudaErrorInvalidValue;
-  switch (R) {
-    case 1: return launch_acs<1>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 2: return launch_acs<2>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 3: return launch_acs<3>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 4: return launch_acs<4>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 5: return launch_acs<5>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 6: return launch_acs<6>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 7: return launch_acs<7>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 8: return launch_acs<8>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
+template <bool COMP>
+cudaError_t tb_warp_dispatch(const TbArgs& a) {
+  switch (a.K) {
+    case 2: return launch_tb_warp<2, COMP>(a);
+    case 3: return launch_tb_warp<3, COMP>(a);
+    case 4: return launch_tb_warp<4, COMP>(a);
+    case 5: return launch_tb_warp<5, COMP>(a);
+    case 6: return launch_tb_warp<6, COMP>(a);
+    case 7: return launch_tb_warp<7, COMP>(a);
+    case 8: return launch_tb_warp<8, COMP>(a);
+    case 9: return launch_tb_warp<9, COMP>(a);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int R>
+cudaError_t launch_tb_block(const TbArgs& a, int depth) {
+  const int smem = tb_smem(a.K, R, depth);
+  auto kernel = depth == 2 ? acs_tb2_block_kernel<R> : acs_tb_block_kernel<R>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // Depth 2: S/4 threads a frame, in whole warps.
+  const int threads = depth == 2 ? ((1 << (a.K - 3)) + 31) / 32 * 32 : acs_threads(a.K);
+  kernel<<<a.B, threads, smem, a.stream>>>(a.m_in, a.sym, a.etab, a.m_out, a.dec, a.K, a.low,
+                                           a.hl, a.B, a.t_real);
+  return cudaGetLastError();
+}
+
+cudaError_t tb_dispatch(const TbArgs& a, bool comp, int depth) {
+  // Depth 2's block form holds S/4 threads (K <= 13) and needs four
+  // predecessors a thread (K >= 3).
+  if (a.K < (depth == 2 ? 3 : 2) || a.K > (depth == 2 ? 13 : 15) || a.R < 1 || a.R > 8 ||
+      a.B < 1 || a.t_real < 1)
+    return cudaErrorInvalidValue;
+  if (a.K <= 9) return comp ? tb_warp_dispatch<true>(a) : tb_warp_dispatch<false>(a);
+  switch (a.R) {
+    case 1: return launch_tb_block<1>(a, depth);
+    case 2: return launch_tb_block<2>(a, depth);
+    case 3: return launch_tb_block<3>(a, depth);
+    case 4: return launch_tb_block<4>(a, depth);
+    case 5: return launch_tb_block<5>(a, depth);
+    case 6: return launch_tb_block<6>(a, depth);
+    case 7: return launch_tb_block<7>(a, depth);
+    default: return launch_tb_block<8>(a, depth);
   }
 }
 
@@ -1042,56 +1278,33 @@ cudaError_t launch_chainback(const int* dec, const int* endstate, int* bits, int
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_acs2(const int* m_in, const int* sym, const int* etab, int* m_out, int* dec,
-                        int K, int low, int hl, int B, int t_real, int smem, cudaStream_t stream) {
-  const int n4 = 1 << (K - 3);
-  const int threads = (n4 + 31) / 32 * 32;
-  cudaError_t err = cudaFuncSetAttribute(
-      acs_tb2_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  acs_tb2_kernel<R><<<B, threads, smem, stream>>>(m_in, sym, etab, m_out, dec, K, low, hl, B,
-                                                  t_real);
-  return cudaGetLastError();
-}
-
-cudaError_t acs2_dispatch(const int* m_in, const int* sym, const int* etab, int* m_out, int* dec,
-                          int K, int R, int low, int hl, int B, int t_real, int smem,
-                          cudaStream_t s) {
-  // Depth 2 needs four predecessors a thread (K >= 3); a block holds at most
-  // 1024 threads of S/4 (K <= 13).
-  if (K < 3 || K > 13 || B < 1 || t_real < 1) return cudaErrorInvalidValue;
-  switch (R) {
-    case 1: return launch_acs2<1>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 2: return launch_acs2<2>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 3: return launch_acs2<3>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 4: return launch_acs2<4>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 5: return launch_acs2<5>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 6: return launch_acs2<6>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 7: return launch_acs2<7>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    case 8: return launch_acs2<8>(m_in, sym, etab, m_out, dec, K, low, hl, B, t_real, smem, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// smem: dynamic shared-memory bytes of one block, computed by the Python
-// wrapper (ops/cuda/kernels.py acs_smem_bytes) from the carve-up above.
-int viterbi_acs_tb(const void* m_in, const void* sym, const void* etab, void* m_out, void* dec,
-                   int K, int R, int low, int hl, int B, int t_real, int smem, void* stream) {
-  return (int)acs_dispatch((const int*)m_in, (const int*)sym, (const int*)etab, (int*)m_out,
-                           (int*)dec, K, R, low, hl, B, t_real, smem, (cudaStream_t)stream);
+// State-order ACS, depth 1 (acs_update_tb) and depth 2 (acs_update_tb2).
+// etab: packed_transition_table (the block forms); lanetab: warp_lane_table
+// (ops/cuda/kernels.py; the warp form); comp: every polynomial taps both
+// register ends (complement_form).
+int viterbi_acs_tb(const void* m_in, const void* sym, const void* etab, const void* lanetab,
+                   void* m_out, void* dec, int K, int R, int comp, int low, int hl, int B,
+                   int t_real, void* stream) {
+  const TbArgs a{(const int*)m_in, (const int*)sym, (const int*)etab, (const int*)lanetab,
+                 (int*)m_out, (int*)dec, K, R, low, hl, B, t_real, (cudaStream_t)stream};
+  return (int)tb_dispatch(a, comp != 0, 1);
 }
 
-// smem: 4 * (2 * S + kStage * R) bytes (ops/cuda/kernels2.py tb2_smem_bytes).
-int viterbi_acs_tb2(const void* m_in, const void* sym, const void* etab, void* m_out, void* dec,
-                    int K, int R, int low, int hl, int B, int t_real, int smem, void* stream) {
-  return (int)acs2_dispatch((const int*)m_in, (const int*)sym, (const int*)etab, (int*)m_out,
-                            (int*)dec, K, R, low, hl, B, t_real, smem, (cudaStream_t)stream);
+int viterbi_acs_tb2(const void* m_in, const void* sym, const void* etab, const void* lanetab,
+                    void* m_out, void* dec, int K, int R, int comp, int low, int hl, int B,
+                    int t_real, void* stream) {
+  const TbArgs a{(const int*)m_in, (const int*)sym, (const int*)etab, (const int*)lanetab,
+                 (int*)m_out, (int*)dec, K, R, low, hl, B, t_real, (cudaStream_t)stream};
+  return (int)tb_dispatch(a, comp != 0, 2);
 }
+
+// Dynamic shared memory of one block of the state-order ACS launch (what
+// ops/cuda/kernels.py acs_smem_bytes mirrors).
+int viterbi_acs_tb_smem(int K, int R, int depth) { return tb_smem(K, R, depth); }
 
 // postab, pair32, pair8: the host tables of ops/cuda/inplace.py
 // (position_tables, pair_tables and the low byte of pair_tables); comp: every

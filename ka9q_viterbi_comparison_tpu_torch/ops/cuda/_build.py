@@ -57,8 +57,9 @@ _L = ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 # extern "C" entry points of the sources: name -> argtypes.
 _SIGNATURES = {
-    "viterbi_acs_tb": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "viterbi_acs_tb2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_tb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_tb2": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_tb_smem": (_I, _I, _I),
     "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace_smem": (_I, _I, _I),
     "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),

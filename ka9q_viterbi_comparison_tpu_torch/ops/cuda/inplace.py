@@ -30,7 +30,8 @@ from ...utils.bits import unpack_words_to_bits
 from ..acs import _pack_decisions
 from ..branch import packed_transition_table
 from . import _build
-from .kernels import _check_t_real, _state_order_words, launch_chainback, walk_ref
+from .kernels import (_check_t_real, _state_order_words, complement_form, launch_chainback,
+                      walk_ref)
 
 __all__ = [
     "acs_update_inplace",
@@ -125,19 +126,6 @@ def position_tables(code: CodeSpec) -> np.ndarray:
         partner = (e >> (8 * (2 * (1 - b) + b))) & 0xFF
         out[c, :S] = own | (partner << 8)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def complement_form(code: CodeSpec) -> bool:
-    """Whether every butterfly uses one pattern and its complement: the
-    branches ``(h, b)`` = (0, 1) and (1, 0) carry the complement of (0, 0)'s
-    pattern and (1, 1) carries the same.  True when every polynomial taps both
-    ends of the register (all six reference codes); the kernels then take a
-    partner's penalty as ``R * (high - low)`` minus the own one."""
-    e = packed_transition_table(code).astype(np.int64)
-    full = (1 << code.R) - 1
-    x = [(e >> (8 * k)) & 0xFF for k in range(4)]
-    return bool(((x[1] == (x[0] ^ full)) & (x[2] == (x[0] ^ full)) & (x[3] == x[0])).all())
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,10 +4,14 @@ Port of ``ka9q_viterbi_comparison_tpu/ops/pallas/kernels2.py``
 (``acs_update_tb2``), a drop-in for ``kernels.acs_update_tb`` with the same
 contract: metrics ``[S, B]`` int32 in and out, symbols ``[Tp, R, B]``,
 canonical decision words ``[Tp, W, B]`` (bit ``s % 32`` of word ``s // 32``),
-steps past ``t_real`` never run, no renormalisation.  The CUDA kernel is
-``acs_tb2_kernel`` in ``csrc/viterbi_small.cu``; beside the wrapper is its
-plain PyTorch version.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+steps past ``t_real`` never run, no renormalisation.  The CUDA kernels are
+in ``csrc/viterbi_small.cu``: for K <= 9 the state-order warp form that also
+serves ``acs_update_tb`` (``acs_tb_warp_kernel``, one step a pass: in its
+layout two steps a pass would cost more instructions a step, not fewer;
+``PERF.md`` §6), for K = 10..13, which no route sends here,
+``acs_tb2_block_kernel``.  This wrapper keeps its own launch counter; beside
+it is its plain PyTorch version.  A CPU tensor takes the plain version; a
+CUDA tensor launches the kernel or raises.
 
 What a pair computes.  Step A's new state ``i = 2*s2 + b1`` stays in raw
 butterfly coordinates ``(b1, s2)``.  Step B pairs ``i`` with ``i + S/2``,
@@ -18,7 +22,7 @@ b2``.  An odd ``t_real`` ends with one step A alone.  Both steps' decision
 words are written per step in canonical order, so the traceback is the one of
 ``kernels.py``.
 
-Depth 2 needs four predecessors a thread, so K >= 3; the kernel's block holds
+Depth 2 needs four predecessors a thread, so K >= 3; the block form holds
 S/4 threads, so K <= 13.  Outside that range the wrapper raises: it never
 gives way to ``acs_update_tb`` on its own.
 """
@@ -30,8 +34,7 @@ import torch
 from ...configs import CodeSpec, NumericSpec
 from ..acs import _pack_decisions
 from ..branch import transition_tables
-from . import _build
-from .kernels import STAGE, _check_t_real, device_table
+from .kernels import _check_t_real, acs_smem_bytes, launch_acs_tb
 
 __all__ = ["acs_update_tb2", "acs_update_tb2_ref", "tb2_smem_bytes"]
 
@@ -43,9 +46,10 @@ def _check_code(code: CodeSpec) -> None:
 
 
 def tb2_smem_bytes(code: CodeSpec) -> int:
-    """Dynamic shared memory of one block: two metric buffers and the staged
-    symbols (the kernel keeps its table entries in registers)."""
-    return 4 * (2 * code.num_states + STAGE * code.R)
+    """Dynamic shared memory of one block: the warp form's for K <= 9
+    (``kernels.acs_smem_bytes``); above, two metric buffers and the staged
+    symbols (the block form keeps its table entries in registers)."""
+    return acs_smem_bytes(code, depth=2)
 
 
 def _butterfly(lo: torch.Tensor, hi: torch.Tensor, pen: torch.Tensor):
@@ -116,18 +120,4 @@ def acs_update_tb2(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tenso
     if not metrics_sb.is_cuda:
         return acs_update_tb2_ref(code, numeric, metrics_sb, symbols_trb, t_real)
     _check_code(code)
-    S, B = metrics_sb.shape
-    Tp = symbols_trb.shape[0]
-    t_real = _check_t_real(t_real, Tp)
-    _build.check_cuda_int32("metrics_sb", metrics_sb, (code.num_states, B))
-    _build.check_cuda_int32("symbols_trb", symbols_trb, (Tp, code.R, B))
-    dev = metrics_sb.device
-    etab = device_table(code, dev)
-    m_out = torch.empty_like(metrics_sb)
-    dec = torch.empty((Tp, code.decision_words, B), dtype=torch.int32, device=dev)
-    _build.launch(
-        "acs_update_tb2", "viterbi_acs_tb2", dev,
-        metrics_sb.data_ptr(), symbols_trb.data_ptr(), etab.data_ptr(), m_out.data_ptr(),
-        dec.data_ptr(), code.K, code.R, numeric.soft_low,
-        numeric.soft_high + numeric.soft_low, B, t_real, tb2_smem_bytes(code))
-    return m_out, dec
+    return launch_acs_tb("acs_update_tb2", 2, code, numeric, metrics_sb, symbols_trb, t_real)

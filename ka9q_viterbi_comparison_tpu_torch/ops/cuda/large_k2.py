@@ -170,9 +170,10 @@ def launch_block(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
     The ACS commutes with a uniform shift and the metrics are int32, so the
     shifts up to a point add up to the frame minimum there: a shift that a
     later one follows changes neither the returned metrics nor the offset.
-    The streaming form skips those, each a pass over the metrics: with no
-    in-scan renormalisation the pairs' entry shift when the tail's follows,
-    and with ``shifts=False`` (the caller shifts next) every shift."""
+    With ``shifts=False`` (a block inside a call whose entry shift was taken,
+    and whose caller shifts next) the streaming form skips every shift, each
+    a pass over the metrics.  The entry shift of a block with ``shifts`` is
+    always taken, so that entry metrics near the int32 limit cannot wrap."""
     _, rn = renorm_schedule(code, numeric, T, metric_dtype)
     blocks = chip_blocks(code, metrics.shape[0])
     if blocks:
@@ -180,10 +181,8 @@ def launch_block(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
                            blocks, g2, g2_strides)
     m = metrics
     if T >= 2:
-        pair_shifts = shifts and not (T % 2 and rn == 0)
         m = launch_large("acs_update_large2", 2, code, numeric, m, symbols, words, offset,
-                         strides, t0, T // 2, rn if pair_shifts else 0, g2, g2_strides,
-                         pair_shifts)
+                         strides, t0, T // 2, rn if shifts else 0, g2, g2_strides, shifts)
     if T % 2:
         m = launch_large("acs_update_large", 1, code, numeric, m, symbols, words, offset,
                          strides, t0 + T - 1, 1, shifts=shifts)

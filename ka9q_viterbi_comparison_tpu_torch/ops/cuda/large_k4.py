@@ -37,9 +37,10 @@ between the two quads of an octet is taken there as the frame minimum and
 subtracted as the next launch reads.  Metrics are stored as int32
 throughout, as in ``large_k2``, so a shift that a later one follows changes
 neither the returned metrics nor the offset (the ACS commutes with a uniform
-shift): the launches skip those that cost a pass over the metrics (the lead
-steps' shifts; with no in-scan renormalisation, the quads' entry shift when
-a remainder follows).
+shift): the launches skip those that cost a pass over the metrics (the
+shifts inside the lead steps and of their remainder, the shift of a
+remainder after the quads), all but a call's entry shift, which its first
+launch takes so that entry metrics near the int32 limit cannot wrap.
 """
 
 from __future__ import annotations
@@ -186,22 +187,21 @@ def acs_update_large4_fields8_ref(code: CodeSpec, numeric: NumericSpec, metrics:
 def launch_quads(counter: str, mode: int, code: CodeSpec, numeric: NumericSpec,
                  metrics: torch.Tensor, symbols: torch.Tensor, table: torch.Tensor,
                  offset: torch.Tensor, strides: tuple[int, int], t0: int, nq: int,
-                 rn: int, shifts: bool = True, tail: int = 0,
+                 rn: int, tail: int = 0,
                  entry: torch.Tensor | None = None, fin: int = 0):
     """Check and call the launcher of ``csrc/viterbi_large4.cu``: ``nq``
     quads from step ``t0`` of ``symbols`` (``nq // 2`` octet launches, then a
     lone quad for odd ``nq``), renormalising after every ``rn``-th quad,
     then ``tail`` (0 or 3, words form) steps that run with the last quad as
     one 7-step launch.  ``table``: the words (``strides``: their frame and
-    step strides) or the f4 / f8 table.  ``shifts=False`` (``rn = 0``): no
-    entry shift either, for quads whose shifts a later one subsumes;
-    ``entry``: a ``[B]`` row holding the entry shift, computed by an earlier
-    call.  ``fin`` (with the tail): 2 returns the frame minimum of the final
+    step strides) or the f4 / f8 table.  ``entry``: a ``[B]`` row holding
+    the entry shift, computed by an earlier call (else the first launch
+    takes the frame minimum of ``metrics``).  ``fin`` (with the tail): 2 returns the frame minimum of the final
     metrics, unsubtracted, for the next call's entry; 3 shifts by the
     minimum before the last step.  Returns the final metrics ``[B, S]``
     int32, and with ``fin=2`` that minimum; ``table`` and ``offset`` are
     filled in place."""
-    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, nq, rn, shifts)
+    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, nq, rn)
     B = metrics.shape[0]
     fmin = (torch.full((B,), large_k.INT32_MAX, dtype=torch.int32, device=metrics.device)
             if fin else None)
@@ -239,16 +239,14 @@ def acs_update_large4(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tenso
     m = metrics
     if T % 4 == 3 and T > 4 and rn == 0:
         # The remainder's shifts (its entry, its tail's entry) add up to the
-        # minimum before the last step, and subsume the quads' entry shift:
-        # the last quad and the remainder run as one 7-step launch.
+        # minimum before the last step: the last quad and the remainder run
+        # as one 7-step launch, which shifts by that minimum.
         m = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, words,
-                         offset, strides, 0, T // 4, 0, False, 3, fin=3)
+                         offset, strides, 0, T // 4, 0, 3, fin=3)
         return m, words, offset
     if T >= 4:
-        # With no in-scan renormalisation, the remainder's shift subsumes the quads' entry shift.
-        shifts = not (T % 4 and rn == 0)
         m = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, words,
-                         offset, strides, 0, T // 4, rn, shifts)
+                         offset, strides, 0, T // 4, rn)
     if T % 4:
         m = launch_block(code, numeric, m, symbols, words, offset, strides, 4 * (T // 4), T % 4,
                          metric_dtype)
@@ -268,20 +266,21 @@ def _fields(counter, mode, code, numeric, metrics, symbols, lead, metric_dtype):
     m = metrics
     entry = None
     if lead in (3, 7) and T > lead:
-        # The lead steps as one launch (a 3-step tri, or a quad and a tri),
-        # whose words are dropped and whose final frame minimum is the
-        # quads' entry shift, subsuming the lead's own shifts.
+        # The lead steps as one launch (a 3-step tri, or a quad and a tri)
+        # after the call's entry shift, whose words are dropped and whose
+        # final frame minimum is the quads' entry shift.
         dropped, strides = words_buffer(B, lead, W, False, dev)
         m, entry = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols,
-                                dropped, offset, strides, 0, lead // 4, 0, False, 3, fin=2)
+                                dropped, offset, strides, 0, lead // 4, 0, 3, fin=2)
     elif lead:  # whole quads, then pairs; the shift after the lead steps subsumes theirs
         dropped, strides = words_buffer(B, lead, W, False, dev)
         if lead >= 4:
             m = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, dropped,
-                             offset, strides, 0, lead // 4, 0, shifts=False)
+                             offset, strides, 0, lead // 4, 0)
         if lead % 4:
+            # The call's entry shift where no quad took it.
             m = launch_block(code, numeric, m, symbols, dropped, offset, strides, lead - lead % 4,
-                             lead % 4, metric_dtype, shifts=False)
+                             lead % 4, metric_dtype, shifts=lead < 4)
     table = torch.empty(((T - lead) // width, width, B, W), dtype=torch.int32, device=dev)
     if T == lead:
         m, shift = _shift_to_zero(m)

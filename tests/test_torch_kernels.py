@@ -143,14 +143,18 @@ def test_rot_perm_matches_and_inverts():
 
 
 def test_smem_budget_formula():
-    """One K=7 state-order block: two metric buffers, the table, 32 staged
+    """One K=7 state-order block (the warp form): two warps, each with two
+    penalty tables of 2^R columns of 33 words and two stages of symbols; a
+    K=10 block of the block form: two metric buffers, the table, 32 staged
     steps of symbols and two steps of decision bytes.  One K=7 in-place block
     at B=512: four warps of one frame, each with two penalty tables of 30
     rows of 2^R + 1 words and two stages of symbols; Cassini: a frame's
     metrics, two tables of 32 rows of 65 words, two stages of symbols and the
     pattern bytes of its 14 phases."""
     pc = ported(J.VITERBI27, J.soft8_spec(2))[0]
-    assert pk.acs_smem_bytes(pc) == 4 * (128 + 32 + 64) + 128
+    assert pk.acs_smem_bytes(pc) == 2 * 4 * (2 * 4 * 33 + 2 * 32 * 2)
+    k10 = code_from_fields("k10r2", 10, 2, (0o1167, 0o1546))
+    assert pk.acs_smem_bytes(k10) == 4 * (1024 + 256 + 64) + 2 * 16 * 32
     assert pip.inplace_warps_per_block(pc) == 4
     assert pip.inplace_smem_bytes(pc) == 4 * 4 * (2 * 30 * 5 + 2 * 32 * 2)
     cas = ported(J.VITERBI615, J.soft8_spec(6))[0]
@@ -290,3 +294,55 @@ def test_cuda_launch_geometry_is_what_python_says(cuda_device):
         pc = code_from_fields(jc.name, jc.K, jc.R, jc.polys)
         assert fns["viterbi_acs_inplace_smem"](pc.K, pc.R, int(pip.complement_form(pc))) \
             == pip.inplace_smem_bytes(pc)
+
+
+# The state-order ACS's forms (a warp a frame up to K=9, the block form
+# above; the complement and the generic penalty look-up) through both entry
+# points, on random symbols and random entry metrics: K=2..10, R=1..6,
+# ``t_real`` odd, below 32 and not a multiple of 32, batches of 1, 33 and 130
+# that do not fill a block's two warps.
+TB_FORM_CASES = [
+    # K, R, polys, spec, B, T, t_real
+    pytest.param(2, 2, (0o3, 0o1), "soft8_spec", 33, 40, 37, id="k2-one-end"),
+    pytest.param(3, 2, (0o7, 0o5), "soft8_spec", 1, 100, 99, id="k3-B1"),
+    pytest.param(4, 1, (0o15,), "soft8_spec", 130, 64, 31, id="k4r1-t_real<32"),
+    pytest.param(5, 2, (0o23, 0o35), "soft8_spec", 33, 100, 77, id="k5"),
+    pytest.param(6, 3, (0o53, 0o75, 0o47), "soft8_spec", 130, 100, 100, id="k6r3"),
+    pytest.param(7, 2, J.VITERBI27.polys, "soft8_spec", 1, 300, 299, id="k7-B1"),
+    pytest.param(7, 4, J.VITERBI47.polys, "soft8_spec", 33, 300, 257, id="k7r4"),
+    pytest.param(7, 6, (0o155, 0o117, 0o127, 0o171, 0o133, 0o165), "soft8_spec", 130, 100, 95,
+                 id="k7r6"),
+    pytest.param(7, 2, (0o155, 0o056), "soft8_spec", 130, 150, 149, id="k7-one-end"),
+    pytest.param(8, 5, (0o247, 0o371, 0o225, 0o353, 0o311), "soft8_spec", 33, 100, 63, id="k8r5"),
+    pytest.param(9, 2, J.VITERBI29.polys, "soft16_spec", 130, 300, 300, id="k9-soft16"),
+    pytest.param(9, 4, J.VITERBI49.polys, "soft8_spec", 1, 200, 199, id="k9r4-B1"),
+    pytest.param(9, 3, (0o557, 0o256, 0o711), "soft8_spec", 33, 150, 150, id="k9-one-end"),
+    pytest.param(10, 2, (0o1167, 0o1546), "soft8_spec", 33, 100, 99, id="k10-block"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,polys,spec,B,T,t_real", TB_FORM_CASES)
+def test_cuda_tb_forms(cuda_device, K, R, polys, spec, B, T, t_real):
+    from ka9q_viterbi_comparison_tpu_torch.ops.cuda import kernels2 as pk2
+    pc, pn, sym, m, _ = _form_inputs(K, R, polys, spec, B, T)
+    rm, rd = pk.acs_update_tb_ref(pc, pn, m, sym, t_real)
+    before = dict(_build.LAUNCHES)
+    km, kd = pk.acs_update_tb(pc, pn, m, sym, t_real)
+    assert torch.equal(km, rm) and torch.equal(kd[:t_real], rd[:t_real])
+    if K >= 3:
+        km2, kd2 = pk2.acs_update_tb2(pc, pn, m, sym, t_real)
+        assert torch.equal(km2, km) and torch.equal(kd2[:t_real], kd[:t_real])
+    assert _build.LAUNCHES["acs_update_tb"] == before["acs_update_tb"] + 1
+    assert _build.LAUNCHES["acs_update_tb2"] == before["acs_update_tb2"] + (K >= 3)
+
+
+@pytest.mark.cuda
+def test_cuda_tb_launch_geometry_is_what_python_says(cuda_device):
+    from ka9q_viterbi_comparison_tpu_torch.ops.cuda import kernels2 as pk2
+    fns = _build.library()
+    for K, R in ((2, 2), (3, 1), (7, 2), (7, 4), (9, 2), (9, 8), (10, 2), (13, 2), (15, 6)):
+        pc = code_from_fields(f"k{K}r{R}", K, R, tuple([(1 << K) - 1] * R))
+        assert fns["viterbi_acs_tb_smem"](K, R, 1) == pk.acs_smem_bytes(pc)
+        if K <= 13:
+            assert fns["viterbi_acs_tb_smem"](K, R, 2) == pk2.tb2_smem_bytes(pc)

@@ -123,7 +123,8 @@ def test_wrapper_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError, match="t_real"):
         pk2.acs_update_tb2(P.VITERBI27, P.soft8_spec(2), torch.zeros((64, 1), dtype=torch.int32),
                            torch.zeros((4, 2, 1), dtype=torch.int32), 5)
-    assert pk2.tb2_smem_bytes(P.VITERBI27) == 4 * (2 * 64 + 32 * 2)
+    assert pk2.tb2_smem_bytes(P.VITERBI27) == pk.acs_smem_bytes(P.VITERBI27)  # the warp form
+    assert pk2.tb2_smem_bytes(P.CodeSpec("k10", 10, 2, (0o1167, 0o1546))) == 4 * (2 * 512 + 32 * 2)
     assert "acs_update_tb2" in _build.LAUNCHES and "viterbi_acs_tb2" in _build._SIGNATURES
 
 

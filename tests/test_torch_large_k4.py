@@ -341,3 +341,31 @@ def test_cuda_small_k_octets(cuda_device, form, jc, spec, B, T, leads):
     name = ICE_FORMS[form][0]
     pc, pn, m, s = card_inputs(jc, spec, B, T, seed=jc.K)
     held(name, pc, pn, m, s, () if form == "words" else (leads[form == "fields8"],))
+
+
+# Entry metrics within 64 of the int32 limit (so that a step's penalties
+# carry most of them past it), their minimum far from zero:
+# the plain versions shift them to zero first, as the JAX package does; a
+# call whose first launch skipped that shift would wrap.  Every route of the
+# depth-4 forms' launch plans: a 7-step launch (T % 4 == 3), quads then a
+# remainder block, the fields forms' one-launch lead (3 or 7 steps) and a
+# lead of quads and pairs.
+NEAR_LIMIT = [(plk4.acs_update_large4, 11, None), (plk4.acs_update_large4, 13, None),
+              (plk4.acs_update_large4, 16, None), (plk4.acs_update_large4_fields, 11, 3),
+              (plk4.acs_update_large4_fields, 13, 5), (plk4.acs_update_large4_fields8, 15, 7),
+              (plk4.acs_update_large4_fields8, 13, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,T,lead", NEAR_LIMIT,
+                         ids=[f"{f.__name__}-T{T}-lead{lead}" for f, T, lead in NEAR_LIMIT])
+def test_cuda_entry_metrics_near_the_limit(cuda_device, fn, T, lead):
+    pc, pn, _, s = card_inputs(K12, "soft8_spec", 4, T, seed=T)
+    rng = np.random.default_rng(T)
+    m = torch.from_numpy(rng.integers(2**31 - 64, 2**31 - 1, size=(4, pc.num_states))
+                         .astype(np.int32)).cuda()
+    extra = () if lead is None else (lead,)
+    got = fn(pc, pn, m, s, *extra)
+    want = getattr(plk4, fn.__name__ + "_ref")(pc, pn, m, s, *extra)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
