@@ -7,7 +7,9 @@ together), holds each of the ten kernels against its plain PyTorch version on
 the card (the in-place pair and the tracebacks in every form: K=3..15,
 R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
 tap both register ends, chained halves; the state-order ACS through both of
-its entry points at K=2..10, R=1..6, batches of 1, 33 and 130; the large-K
+its entry points at K=2..10, R=1..6, batches of 1, 33 and 130;
+``acs_update_large`` in each form of its plan: on chip at Cassini, octets at
+ICE, streaming at K=10 R=7, with its launcher calls counted; the large-K
 launch plans from entry metrics at the int32 limit), then drives six paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns`` and the benchmark runner -- each with the launch counts
@@ -22,8 +24,9 @@ zeroed just before it and read just after:
   depth-4 kernel (ten octets, then the last quad and the three-step
   remainder as one 7-step launch) on whole frames, and in blocks of 41 and
   46 steps, whose remainders of 1 and 2 steps run on the streaming step and
-  pair kernels (no whole ICE call reaches them: the blocks are there to keep
-  them on a path); the portable walk;
+  pair kernels with their entry shift from the last octet launch (no whole
+  ICE call reaches them: the blocks are there to keep them on a path); the
+  portable walk;
 * the same ICE frames through ``phase_fns``: the update that returns the
   byte-packed f8 walk table (the octet kernel in fields mode, ten octets,
   after the 7 lead steps as one 7-step launch) and the 8-steps-a-fetch table
@@ -38,7 +41,8 @@ zeroed just before it and read just after:
 
 Then it times the kernels and the decoders' phases with CUDA events, and
 counts the launches a call of the state-order and large-K updates from a
-profiler trace.  Every
+profiler trace (``acs_update_large``: as many as ``large_k.plan`` gives,
+one a call on chip).  Every
 number line carries the card's name and power limit.  The last three lines
 are a JSON object listing the kernels, the card's name and power limit, and a
 JSON object ``{"ok": true, "device": ...}``.
@@ -124,6 +128,7 @@ REPLACES = {
     "acs_update_large4_fields": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:512",
     "acs_update_large4_fields8": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:669",
 }
+K10R7_POLYS = (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621)  # blocks too small on chip
 ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
 # The reference's per-test JSON schema (ref: print_test, src/main.cpp:80-118).
 SCHEMA_KEYS = {
@@ -413,13 +418,11 @@ def phase_kernels_large(tag, rng, errs):
                          (cas, s16, metrics0(cas, s16, 16, state_major=False), sym16),
                          {"time_major": True})
     note("acs_update_large2", e)
-    # The step kernel on an odd-length block (half a frame: 1031 steps).
+    # acs_update_large on chip: an odd-length block (half a frame: 1031 steps).
     half = T // 2
-    e, _ = compare_large(f"acs_update_large cassini soft8 B={B_CAS_LARGE} T={half}",
-                         large_k.acs_update_large, large_k.acs_update_large_ref,
-                         (cas, soft8, m0, sym[:, :half].contiguous()),
-                         keep=("acs_update_large", "block"))
-    note("acs_update_large", e)
+    note("acs_update_large", compare_plan(f"cassini soft8 B={B_CAS_LARGE} T={half}", cas, soft8,
+                                          m0, sym[:, :half].contiguous(),
+                                          keep=("acs_update_large", None)))
     # ICE K=24 (2^23 states) at B=2, T=7: three pairs and the odd tail.
     ice, s8 = VITERBI224, soft8_spec(2)
     sym_ice = torch.from_numpy(rng.integers(-3, 4, size=(2, 7, 2)).astype(np.int32)).cuda()
@@ -428,19 +431,30 @@ def phase_kernels_large(tag, rng, errs):
     e, _ = compare_large("acs_update_large2 ice B=2 T=7", large_k2.acs_update_large2,
                          large_k2.acs_update_large2_ref, (ice, s8, m_ice, sym_ice))
     note("acs_update_large2", e)
-    e, _ = compare_large("acs_update_large ice B=2 T=7", large_k.acs_update_large,
-                         large_k.acs_update_large_ref, (ice, s8, m_ice, sym_ice))
-    note("acs_update_large", e)
+    note("acs_update_large", compare_plan("ice B=2 T=7", ice, s8, m_ice, sym_ice))
     del m_ice
+    # acs_update_large streaming: a K=10 R=7 code, whose blocks are too small
+    # for the on-chip form (pairs, then the odd step).
+    k10, s7 = CodeSpec("k10r7", 10, 7, K10R7_POLYS), soft8_spec(7)
+    sym10 = torch.from_numpy(rng.integers(s7.soft_low, s7.soft_high + 1, size=(3, 21, 7))
+                             .astype(np.int32)).cuda()
+    m10 = torch.from_numpy(rng.integers(3, 60, size=(3, k10.num_states)).astype(np.int32)).cuda()
+    note("acs_update_large", compare_plan("k10r7 B=3 T=21", k10, s7, m10, sym10,
+                                          keep=("acs_update_large", "stream")))
     # Both at the ICE decode path's own shapes: B=8, 87 steps, reset metrics.
     _, sym_ice = noisy_symbols(s8, B_ICE, rng, 3, ice, ICE_BYTES)
     m_ice = metrics0(ice, s8, B_ICE, state_major=False)
     T_ice = sym_ice.shape[1]
-    for name, mod in (("acs_update_large2", large_k2), ("acs_update_large", large_k)):
-        e, _ = compare_large(f"{name} ice B={B_ICE} T={T_ice}", getattr(mod, name),
-                             getattr(mod, name + "_ref"), (ice, s8, m_ice, sym_ice),
-                             keep=(name, "ice") if name == "acs_update_large2" else None)
-        note(name, e)
+    e, _ = compare_large(f"acs_update_large2 ice B={B_ICE} T={T_ice}", large_k2.acs_update_large2,
+                         large_k2.acs_update_large2_ref, (ice, s8, m_ice, sym_ice),
+                         keep=("acs_update_large2", "ice"))
+    note("acs_update_large2", e)
+    note("acs_update_large", compare_plan(f"ice B={B_ICE} T={T_ice}", ice, s8, m_ice, sym_ice,
+                                          keep=("acs_update_large", "ice")))
+    # The one-step tail at path 3's shape (the remainder of its 41-step block).
+    note("acs_update_large", compare_plan(f"ice B={B_ICE} T=1", ice, s8, m_ice,
+                                          sym_ice[:, :1].contiguous(),
+                                          keep=("acs_update_large", "ice_tail")))
     del m_ice, sym_ice
     # The in-place pair at K=15, B=256, a whole frame.
     _, sym = noisy_symbols(soft8, B_CAS_INPLACE, rng, 3, cas, CAS_BYTES)
@@ -458,6 +472,22 @@ def phase_kernels_large(tag, rng, errs):
     near_limit(rng, errs)
     torch.cuda.empty_cache()
     print(f"[{tag}] large-K kernels and K=15 shapes vs plain versions: all bit-identical")
+
+
+def compare_plan(label, code, numeric, m, sym, keep=None):
+    """``acs_update_large`` against its plain version, with one launcher
+    call (counted as ``acs_update_large``) a segment of its plan.  Returns
+    the max_abs_err."""
+    p = large_k.plan(code, m.shape[0], sym.shape[1])
+    n = _build.LAUNCHES["acs_update_large"]
+    e, _ = compare_large(f"acs_update_large {label} ({p.form}: {p.launches} kernel launches "
+                         f"planned)", large_k.acs_update_large, large_k.acs_update_large_ref,
+                         (code, numeric, m, sym), keep=keep)
+    calls = _build.LAUNCHES["acs_update_large"] - n
+    if calls != len(p.segments):
+        raise SystemExit(f"FAIL acs_update_large {label}: {calls} launcher calls, planned "
+                         f"{len(p.segments)}")
+    return e
 
 
 def near_limit(rng, errs):
@@ -1122,9 +1152,9 @@ def phase_timing(tag, rng):
 
 def phase_timing_large(tag, rng, rows):
     """The large-K kernels at the Cassini path's shapes (the pair kernel on
-    a whole B=64 frame, the step kernel on the one-step tail of a block, and
-    on a 1031-step block for its per-step rate), the K=7 kernels' K=15
-    shapes, and the Cassini decoder's phases."""
+    a whole B=64 frame; ``acs_update_large`` on chip on a 1031-step block and
+    on one step, and streaming on its K=10 R=7 comparison), the K=7 kernels'
+    K=15 shapes, and the Cassini decoder's phases."""
     cas, soft8 = VITERBI615, soft8_spec(6)
     T = cas.transmit_bits(CAS_BYTES)
     B = B_CAS_LARGE
@@ -1135,15 +1165,19 @@ def phase_timing_large(tag, rng, rows):
                     f"cassini B={B} T={T}", acs_bound_ms(B, T, cas), 10)
     print(f"[{tag}] acs_update_large2 cassini B={B}: {1e3 * ms:.1f} us a call = "
           f"{1e3 * ms / (T // 2):.3f} us a pair (launches: phase_launch_trace)")
-    tail = sym[:, T - 1:].contiguous()
-    kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
-               large_k.acs_update_large_ref, (cas, soft8, m0, tail), f"cassini tail B={B} T=1",
-               acs_bound_ms(B, 1, cas), 50)
     half = T // 2
     ms = kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
-                    large_k.acs_update_large_ref, compared_args("acs_update_large", "block"),
-                    f"cassini B={B} T={half}", acs_bound_ms(B, half, cas), 5, key="block")
+                    large_k.acs_update_large_ref, compared_args("acs_update_large"),
+                    f"cassini B={B} T={half} (on chip)", acs_bound_ms(B, half, cas), 10)
     print(f"[{tag}] acs_update_large cassini B={B}: {1e3 * ms / half:.3f} us a step")
+    tail = sym[:, T - 1:].contiguous()
+    kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
+               large_k.acs_update_large_ref, (cas, soft8, m0, tail),
+               f"cassini tail B={B} T=1 (on chip)", acs_bound_ms(B, 1, cas), 50, key="tail")
+    args = compared_args("acs_update_large", "stream")
+    kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
+               large_k.acs_update_large_ref, args, "k10r7 B=3 T=21 (streaming)",
+               acs_bound_ms(3, 21, args[0]), 20, key="stream")
 
     kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
                compared_args("chainback_tb", "k15"), f"cassini B={B} T={T}",
@@ -1202,6 +1236,15 @@ def phase_timing_quad(tag, rng, rows):
                     f"{shape} (streaming, not on a path)", acs_bound_ms(B, T, ice), 5, key="ice")
     print(f"[{tag}] acs_update_large2 {shape}: {1e3 * ms / (T // 2):.2f} us a pair; metric-traffic "
           f"floor {T // 2 + T % 2} passes {(T // 2 + T % 2) * metric_pass_ms(B, ice):.4f} ms")
+    # acs_update_large on octets, and its one-step tail at path 3's shape.
+    for key, label, steps in (("ice", shape, T), ("ice_tail", f"ice B={B} T=1", 1)):
+        ms = kernel_row(tag, rows, "acs_update_large", large_k.acs_update_large,
+                        large_k.acs_update_large_ref, compared_args("acs_update_large", key),
+                        f"{label} (octets)", acs_bound_ms(B, steps, ice), 5 if steps > 1 else 20,
+                        key=key)
+        passes = -(-steps // 8)
+        print(f"[{tag}] acs_update_large {label}: metric-traffic floor {passes} passes at 8 steps "
+              f"a pass {passes * metric_pass_ms(B, ice):.4f} ms")
     del m0
     torch.cuda.empty_cache()
     decoder_phases(tag, ice, s8, B, ICE_BYTES, rng, "ICE (depth-4 words, portable walk)",
@@ -1292,8 +1335,30 @@ def phase_launch_trace(tag, rng, quads):
           f"{large_k2.chip_blocks(cas, B_CAS_LARGE)} blocks a frame): {launch_text(counts)} a call; "
           f"metric-traffic floor 1 pass {metric_pass_ms(B_CAS_LARGE, cas):.4f} ms (streaming, a "
           f"pass a pair: {(T // 2) * metric_pass_ms(B_CAS_LARGE, cas):.4f} ms)")
-    del m, sym
     ice, s8 = VITERBI224, soft8_spec(2)
+    m_ice, sym_ice = quads["acs_update_large4"][0][2:4]
+    k10, s7 = CodeSpec("k10r7", 10, 7, K10R7_POLYS), soft8_spec(7)
+    m10 = metrics0(k10, s7, 3, state_major=False)
+    sym10 = torch.from_numpy(rng.integers(-3, 4, size=(3, 21, 7)).astype(np.int32)).cuda()
+    # acs_update_large in each form: the trace's launches a call must be the plan's.
+    for code, numeric, mm, ss in ((cas, s6, m, sym[:, :T // 2]), (cas, s6, m, sym[:, :1]),
+                                  (ice, s8, m_ice, sym_ice), (ice, s8, m_ice, sym_ice[:, :1]),
+                                  (k10, s7, m10, sym10)):
+        ss = ss.contiguous()
+        p = large_k.plan(code, mm.shape[0], ss.shape[1])
+        counts = trace_launches(lambda: large_k.acs_update_large(code, numeric, mm, ss))
+        print(f"[{tag}] acs_update_large {code.name} B={mm.shape[0]} T={ss.shape[1]} ({p.form}): "
+              f"{launch_text(counts)} a call; planned {p.launches}")
+        if counts and sum(counts.values()) != p.launches:
+            raise SystemExit(f"FAIL: acs_update_large {code.name} T={ss.shape[1]} launched "
+                             f"{sum(counts.values())} kernels, planned {p.launches}")
+    # Path 3's blocks of 41 and 46 steps: the remainder's shift comes from the last quad launch.
+    for n in (41, 46):
+        ss = sym_ice[:, :n].contiguous()
+        counts = trace_launches(lambda: large_k4.acs_update_large4(ice, s8, m_ice, ss))
+        print(f"[{tag}] acs_update_large4 ice B={B_ICE} T={n} (path 3's block): "
+              f"{launch_text(counts)} a call")
+    del m, sym, m10, sym10, m_ice, sym_ice
     pass_ms = metric_pass_ms(B_ICE, ice)
     for name, (args, body, extra, nq, quads_ms, ms) in quads.items():
         fn = getattr(large_k4, name)

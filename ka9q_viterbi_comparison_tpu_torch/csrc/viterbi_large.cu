@@ -5,11 +5,14 @@
 //   acs_pairs_chip_kernel  replaces ops/pallas/large_k2.py  acs_update_large2 (_pair_kernel)
 //                          where a frame's metrics fit on chip (K <= 17), its
 //                          odd tail and its optional G_2 radix planes (want_g2)
-//                          included
+//                          included; and ops/pallas/large_k.py acs_update_large
+//                          (_step_kernel) there: the whole call in one launch,
+//                          with no shift but the entry's (tail_shift = 0)
 //   acs_large_pair_kernel  the same where they do not (K >= 18: the ICE leads
 //                          and remainders), one launch a step pair
-//   acs_large_step_kernel  replaces ops/pallas/large_k.py   acs_update_large  (_step_kernel),
-//                          and the streaming form's odd tail
+//   acs_large_step_kernel  acs_update_large's step where a frame streams, one
+//                          launch a step: the odd step after pairs or octets,
+//                          every step at K = 7 (ops/cuda/large_k.py plan)
 //   frame_min_kernel, frame_sub_kernel (viterbi_large.cuh): the streaming
 //     forms' per-frame shift-to-zero renormalisation (block entry and
 //     in-scan), which the JAX package does in XLA around its kernels.
@@ -62,11 +65,7 @@
 // Tie rule: a decision is c_hi < c_lo, strict; ties keep the low predecessor
 // (ops/pallas/large_k2.py:256, ka9q viterbi27_sse2.cpp:155-156).
 
-#include <cooperative_groups.h>
-
 #include "viterbi_large.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -215,14 +214,15 @@ __device__ __forceinline__ int cluster_min(int x, int (*part)[32], int ev) {
 // minimum after pair i with rn && i % rn == rn - 1, each subtracted as the
 // next pair reads (or as the final metrics leave); an odd T ends in one step
 // with its own entry shift, which with the pending one is the minimum of the
-// metrics it reads.
+// metrics it reads (tail_shift = 0: none, for acs_update_large, whose only
+// shift is the entry's).  fresh: off[b] is written, not added to.
 template <int R, int CL, bool COMP>
 __global__ void __launch_bounds__(kChipThreads, 1)
 acs_pairs_chip_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
                       const int* __restrict__ sym, int* __restrict__ words,
                       int* __restrict__ g2, int* __restrict__ off, Code c, int K, int low,
-                      int hl, int T_sym, int t0, int T, int rn, long long wsb, long long wst,
-                      long long gsb, long long gst) {
+                      int hl, int T_sym, int t0, int T, int rn, int fresh, int tail_shift,
+                      long long wsb, long long wst, long long gsb, long long gst) {
   extern __shared__ int4 sm4[];    // two metric buffers of S / CL states
   __shared__ __align__(1024) int q[2][2][1 << R];  // penalty tables [pair parity][step of the pair]
   __shared__ int part[2][32];
@@ -321,7 +321,8 @@ acs_pairs_chip_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
 
   int* fin = sm + (np & 1) * SB;
   if (T & 1) {  // the odd tail: one step, states 2 s2 + b from s2 and s2 + S/2
-    if (np > 0 && !(rn > 0 && (np - 1) % rn == rn - 1)) pend = cluster_min<CL>(x, part, ev++);
+    if (tail_shift && np > 0 && !(rn > 0 && (np - 1) % rn == rn - 1))
+      pend = cluster_min<CL>(x, part, ev++);
     int* nxt = sm + ((np + 1) & 1) * SB;
     int* wt = words + (size_t)b * wsb + (size_t)(t0 + T - 1) * wst;
     for (int s2 = rank * (SB >> 1) + tid; s2 < (rank + 1) * (SB >> 1); s2 += nt) {
@@ -345,15 +346,15 @@ acs_pairs_chip_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
     const int4 v = f4[s];
     mo[s] = make_int4(v.x - pend, v.y - pend, v.z - pend, v.w - pend);
   }
-  if (rank == 0 && tid == 0) off[b] += total + pend;
+  if (rank == 0 && tid == 0) off[b] = (fresh ? 0 : off[b]) + total + pend;
   Cluster<CL>::sync();  // no block leaves while a peer may still read its shared memory
 }
 
 template <int R, int CL, bool COMP>
 cudaError_t launch_chip(const int* m_in, int* m_out, const int* sym, int* words, int* g2, int* off,
                         const Code& c, int K, int low, int hl, int B, int T_sym, int t0, int T,
-                        int rn, long long wsb, long long wst, long long gsb, long long gst,
-                        cudaStream_t s) {
+                        int rn, int fresh, int tail_shift, long long wsb, long long wst,
+                        long long gsb, long long gst, cudaStream_t s) {
   const int SB = (1 << (K - 1)) / CL;
   const int threads = (SB >> 2) < kChipThreads ? (SB >> 2) : kChipThreads;
   const int smem = 2 * SB * (int)sizeof(int);
@@ -373,7 +374,8 @@ cudaError_t launch_chip(const int* m_in, int* m_out, const int* sym, int* words,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, acs_pairs_chip_kernel<R, CL, COMP>, m_in, m_out, sym, words, g2,
-                           off, c, K, low, hl, T_sym, t0, T, rn, wsb, wst, gsb, gst);
+                           off, c, K, low, hl, T_sym, t0, T, rn, fresh, tail_shift, wsb, wst,
+                           gsb, gst);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -385,23 +387,27 @@ cudaError_t launch_chip(const int* m_in, int* m_out, const int* sym, int* words,
 // Every pending shift (the block-entry min, then each in-scan
 // renormalisation after launch j with rn && j % rn == rn - 1) is taken from
 // its own row of `mins` (rows pre-filled with INT_MAX) and subtracted by the
-// next launch as it reads.  nmins = 0: no shift at all (rn = 0), for a block
-// whose shifts a later one subsumes: the ACS commutes with a uniform shift,
-// so the shifts up to a point add up to the frame minimum there.
+// next launch as it reads.  entry (not null): the entry shift, taken by an
+// earlier launch, and every row of `mins` is a renormalisation's.  nmins = 0
+// and no entry: no shift at all (rn = 0), for a block whose shifts a later
+// one subsumes: the ACS commutes with a uniform shift, so the shifts up to a
+// point add up to the frame minimum there.  fresh: the entry minimum's pass
+// also zeroes `off` (the call's first launch).  m_tmp is read only for nl > 1.
 template <int R>
 cudaError_t run_large(int steps, const int* m_in, const int* sym, const Code& c, int* m_out,
-                      int* m_tmp, int* words, int* g2, int* off, int* mins, int nmins, int K,
-                      int low, int hl, int B, int T_sym, int t0, int nl, int rn, long long wsb,
-                      long long wst, long long gsb, long long gst, cudaStream_t s) {
+                      int* m_tmp, int* words, int* g2, int* off, int* mins, int nmins,
+                      const int* entry, int fresh, int K, int low, int hl, int B, int T_sym,
+                      int t0, int nl, int rn, long long wsb, long long wst, long long gsb,
+                      long long gst, cudaStream_t s) {
   const int S = 1 << (K - 1);
   const int per = S / (steps == 2 ? 4 : 2);  // threads per frame
   const int threads = per < kThreads ? per : kThreads;
   const dim3 grid(per / threads, B);
   int row = 0;
   cudaError_t err = cudaSuccess;
-  const int* sub = nullptr;
-  if (nmins > 0) {
-    err = frame_min(m_in, S, B, mins, s);
+  const int* sub = entry;
+  if (sub == nullptr && nmins > 0) {
+    err = frame_min(m_in, S, B, mins, fresh ? off : nullptr, s);
     if (err != cudaSuccess) return err;
     sub = mins + (size_t)B * row++;
   }
@@ -428,7 +434,7 @@ cudaError_t run_large(int steps, const int* m_in, const int* sym, const Code& c,
     if (rn > 0 && j % rn == rn - 1) {
       if (row >= nmins) return cudaErrorInvalidValue;
       int* mn = mins + (size_t)B * row++;
-      err = frame_min(dst, S, B, mn, s);
+      err = frame_min(dst, S, B, mn, nullptr, s);
       if (err != cudaSuccess) return err;
       sub = mn;
     }
@@ -448,32 +454,37 @@ extern "C" {
 // steps: 2 runs nl launches of the pair kernel, 1 of the step kernel, from
 // trellis step t0 of the symbols [B, T_sym, R].  polys: host pointer to R
 // absolute polynomials; inv: bit r set when polynomial r is inverted;
-// hl = high + low.  mins: [nmins, B] int32 on the device, every entry
-// INT_MAX, one row for the entry shift and one for each renormalisation
-// (every rn launches; rn = 0 for none); nmins = 0 (with rn = 0): no shift.
+// hl = high + low.  mins: [nmins, B] int32 on the device (frame_min_kernel
+// writes each row), one row for the entry shift (unless `entry` holds it)
+// and one for each renormalisation (every rn launches; rn = 0 for none);
+// nmins = 0 and no entry (with rn = 0): no shift.  entry: a [B] row of the
+// entry shift computed earlier (null: none).  fresh (with the entry shift
+// taken here): off is zeroed first, not read.  m_tmp: null for nl = 1.
 // Words of step t of frame b start at words + b * wsb + t * wst.  g2 (pair
 // kernel only; null for none): the G_2 plane of launch j of frame b starts at
 // g2 + b * gsb + j * gst.  Returns the first CUDA error, or 0.
 int viterbi_acs_large(int steps, const void* m_in, const void* sym, const int* polys,
                       void* m_out, void* m_tmp, void* words, void* g2, void* off, void* mins,
-                      int nmins, int K, int R, int inv, int low, int hl, int B, int T_sym, int t0,
-                      int nl, int rn, long long wsb, long long wst, long long gsb, long long gst,
-                      void* stream) {
+                      int nmins, const void* entry, int fresh, int K, int R, int inv, int low,
+                      int hl, int B, int T_sym, int t0, int nl, int rn, long long wsb,
+                      long long wst, long long gsb, long long gst, void* stream) {
   const int kmin = steps == 2 ? 8 : 7;  // a full warp of threads per frame
   if ((steps != 1 && steps != 2) || K < kmin || K > 24 || B < 1 || B > 65535 || nl < 1 ||
       nmins < 0 || rn < 0 || (nmins == 0 && rn != 0) || t0 < 0 || t0 + steps * nl > T_sym ||
-      (g2 != nullptr && steps != 2))
+      (g2 != nullptr && steps != 2) || (fresh && (entry != nullptr || nmins == 0)) ||
+      (nl > 1 && m_tmp == nullptr))
     return (int)cudaErrorInvalidValue;
   const Code c = make_code(polys, K, R, inv, low, hl);
   const int* mi = (const int*)m_in;
   const int* sy = (const int*)sym;
+  const int* en = (const int*)entry;
   int *mo = (int*)m_out, *mt = (int*)m_tmp, *w = (int*)words, *g = (int*)g2, *of = (int*)off,
       *mn = (int*)mins;
   const cudaStream_t s = (cudaStream_t)stream;
 #define LARGE_CASE(RR)                                                                       \
   case RR:                                                                                   \
-    return (int)run_large<RR>(steps, mi, sy, c, mo, mt, w, g, of, mn, nmins, K, low, hl, B, \
-                              T_sym, t0, nl, rn, wsb, wst, gsb, gst, s);
+    return (int)run_large<RR>(steps, mi, sy, c, mo, mt, w, g, of, mn, nmins, en, fresh, K, low, \
+                              hl, B, T_sym, t0, nl, rn, wsb, wst, gsb, gst, s);
   switch (R) {
     LARGE_CASE(1) LARGE_CASE(2) LARGE_CASE(3) LARGE_CASE(4)
     LARGE_CASE(5) LARGE_CASE(6) LARGE_CASE(7) LARGE_CASE(8)
@@ -487,15 +498,17 @@ int viterbi_acs_large(int steps, const void* m_in, const void* sym, const int* p
 // cl <= kChipStates states, and its S / (4 cl) quads, one a thread up to
 // kChipThreads, are at least a pair's 2^(R+1) table entries): T / 2 pairs,
 // renormalising after every rn-th (rn = 0: never), then for odd T the tail
-// step; the entry shift first.  Metrics m_in -> m_out [B, S]; words of step
-// t of frame b at words + b * wsb + t * wst; g2 (null for none): the G_2
-// plane of pair j at g2 + b * gsb + j * gst; off [B] accumulates the shifts.
+// step (with its own entry shift when tail_shift is 1, as acs_update_large2
+// takes it; 0: none, as acs_update_large); the entry shift first.  Metrics
+// m_in -> m_out [B, S]; words of step t of frame b at words + b * wsb + t *
+// wst; g2 (null for none): the G_2 plane of pair j at g2 + b * gsb + j * gst;
+// off [B] accumulates the shifts (fresh: is set to them).
 // polys, inv, hl as viterbi_acs_large.  Returns the first CUDA error, or 0.
 int viterbi_acs_large2_chip(const void* m_in, const void* sym, const int* polys, void* m_out,
                             void* words, void* g2, void* off, int cl, int K, int R, int inv,
-                            int low, int hl, int B, int T_sym, int t0, int T, int rn,
-                            long long wsb, long long wst, long long gsb, long long gst,
-                            void* stream) {
+                            int low, int hl, int B, int T_sym, int t0, int T, int rn, int fresh,
+                            int tail_shift, long long wsb, long long wst, long long gsb,
+                            long long gst, void* stream) {
   if (K < 8 || K > 24 || (cl != 1 && cl != 2 && cl != 4) || R < 1 || R > 8 ||
       (1 << (K - 1)) / cl > kChipStates || (1 << (K - 1)) / cl / 4 < (2 << R) || B < 1 ||
       B > 65535 || T < 1 || rn < 0 || t0 < 0 || t0 + T > T_sym)
@@ -509,9 +522,11 @@ int viterbi_acs_large2_chip(const void* m_in, const void* sym, const int* polys,
   if (R == RR && cl == CL)                                                                 \
     return (int)(c.complement                                                              \
                      ? launch_chip<RR, CL, true>(mi, mo, sy, w, g, of, c, K, low, hl, B, T_sym, \
-                                                 t0, T, rn, wsb, wst, gsb, gst, s)         \
+                                                 t0, T, rn, fresh, tail_shift, wsb, wst, gsb, \
+                                                 gst, s)                                   \
                      : launch_chip<RR, CL, false>(mi, mo, sy, w, g, of, c, K, low, hl, B, T_sym, \
-                                                  t0, T, rn, wsb, wst, gsb, gst, s));
+                                                  t0, T, rn, fresh, tail_shift, wsb, wst, gsb, \
+                                                  gst, s));
 #define CHIP_R(RR) CHIP_CASE(RR, 1) CHIP_CASE(RR, 2) CHIP_CASE(RR, 4)
   CHIP_R(1) CHIP_R(2) CHIP_R(3) CHIP_R(4) CHIP_R(5) CHIP_R(6) CHIP_R(7) CHIP_R(8)
 #undef CHIP_R

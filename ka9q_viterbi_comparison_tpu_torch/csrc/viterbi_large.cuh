@@ -6,14 +6,18 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxR = 8;
 constexpr int kThreads = 256;
+constexpr int kMinThreads = 1024;  // frame_min_kernel's blocks
 
 struct Code {
   int mask[kMaxR];  // poly_r >> 1: parity of a predecessor index
@@ -178,15 +182,28 @@ __device__ __forceinline__ void pair_words(unsigned v1, unsigned v2, int lane, i
   }
 }
 
-// mn[b] = min(mn[b], min over the frame's S metrics); mn starts at INT_MAX.
-// S is a multiple of 4: 16-byte accesses.
-__global__ void __launch_bounds__(kThreads)
-frame_min_kernel(const int* __restrict__ m, int S, int* __restrict__ mn) {
-  __shared__ int part[kThreads / 32];
-  const int b = blockIdx.y;
+// mn[b] = the minimum of frame b's S metrics, written (no prefilled row);
+// with `off`, also off[b] = 0, so that a call's first launch needs no
+// zero-filled offset.  One cluster of blockDim.x-thread blocks a frame,
+// grid (cluster size, B): each block takes the frame minimum of its share
+// (four 16-byte loads in flight a thread), block rank 0 joins the blocks'
+// minima through distributed shared memory.  S is a multiple of 4.
+__global__ void __launch_bounds__(kMinThreads)
+frame_min_kernel(const int* __restrict__ m, int S, int* __restrict__ mn, int* __restrict__ off) {
+  __shared__ int part[kMinThreads / 32];
+  __shared__ int bmin;
+  cg::cluster_group cl = cg::this_cluster();
+  const int b = blockIdx.y, rank = (int)cl.block_rank(), ncl = (int)cl.num_blocks();
   const int4* f = reinterpret_cast<const int4*>(m + (size_t)b * S);
+  const int n = S >> 2, stride = ncl * blockDim.x;
   int v = INT_MAX;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < (S >> 2); i += gridDim.x * blockDim.x) {
+  int i = rank * blockDim.x + threadIdx.x;
+  for (; i + 3 * stride < n; i += 4 * stride) {
+    const int4 x0 = f[i], x1 = f[i + stride], x2 = f[i + 2 * stride], x3 = f[i + 3 * stride];
+    v = min(v, min(min(min(x0.x, x0.y), min(x0.z, x0.w)), min(min(x1.x, x1.y), min(x1.z, x1.w))));
+    v = min(v, min(min(min(x2.x, x2.y), min(x2.z, x2.w)), min(min(x3.x, x3.y), min(x3.z, x3.w))));
+  }
+  for (; i < n; i += stride) {
     const int4 x = f[i];
     v = min(v, min(min(x.x, x.y), min(x.z, x.w)));
   }
@@ -196,8 +213,18 @@ frame_min_kernel(const int* __restrict__ m, int S, int* __restrict__ mn) {
   if (threadIdx.x < 32) {
     v = threadIdx.x < (blockDim.x >> 5) ? part[threadIdx.x] : INT_MAX;
     v = __reduce_min_sync(0xffffffffu, v);
-    if (threadIdx.x == 0) atomicMin(mn + b, v);
+    if (threadIdx.x == 0) bmin = v;
   }
+  cl.sync();
+  if (rank == 0 && threadIdx.x < 32) {
+    v = (int)threadIdx.x < ncl ? *cl.map_shared_rank(&bmin, (int)threadIdx.x) : INT_MAX;
+    v = __reduce_min_sync(0xffffffffu, v);
+    if (threadIdx.x == 0) {
+      mn[b] = v;
+      if (off != nullptr) off[b] = 0;
+    }
+  }
+  cl.sync();  // no block leaves while rank 0 may still read its minimum
 }
 
 // m[b, :] -= sub[b]; off[b] += sub[b].
@@ -219,8 +246,27 @@ dim3 reduce_grid(int S, int B) {
   return dim3(n < 1024 ? n : 1024, B);
 }
 
-cudaError_t frame_min(const int* m, int S, int B, int* mn, cudaStream_t s) {
-  frame_min_kernel<<<reduce_grid(S, B), kThreads, 0, s>>>(m, S, mn);
+// Blocks a frame of frame_min_kernel: up to 16 (a non-portable cluster,
+// which Hopper allows), at least 16 int4 loads a thread.
+cudaError_t frame_min(const int* m, int S, int B, int* mn, int* off, cudaStream_t s) {
+  int cl = 1;
+  while (cl < 16 && (S >> 2) >= 2 * cl * kMinThreads * 16) cl *= 2;
+  cudaError_t err = cudaFuncSetAttribute(frame_min_kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, B);
+  cfg.blockDim = dim3(kMinThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, frame_min_kernel, m, S, mn, off);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

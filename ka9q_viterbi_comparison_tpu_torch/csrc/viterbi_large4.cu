@@ -6,6 +6,9 @@
 //   acs_large_octet_kernel<R, kF4, *>     replaces ops/pallas/large_k4.py acs_update_large4_fields
 //   acs_large_octet_kernel<R, kF8, *>     replaces ops/pallas/large_k4.py acs_update_large4_fields8
 //   (all three are the JAX package's _quad_kernel with want_fields / want_f8)
+//   acs_large_octet_kernel<R, kWords, *>  also ops/pallas/large_k.py acs_update_large where
+//                                         a frame streams at R <= 2 (K >= 18): octets with
+//                                         the entry shift only (ops/cuda/large_k.py plan)
 //
 // Layouts (batch-major, as at the Python wrappers):
 //   metrics  [B, S] int32, state order; symbols [B, T, R] int32
@@ -443,16 +446,18 @@ cudaError_t launch_one(const int* src, int* dst, const int* sym, int* o, const i
 // minimum of m_in into row 0 of `mins`, or none with nmins = 0); then one
 // row of `mins` for each launch that holds a shift point (after quad j with
 // rn && j % rn == rn - 1: the latest point of the launch), subtracted as
-// the next launch reads or by frame_sub_kernel after the last.  fin (tail 3,
-// rn 0): 2 takes the frame minimum of the final metrics into `fmin`, left
-// for the caller; 3 the minimum before the last step, subtracted by
-// frame_sub_kernel.  mode kWords writes words; kF4 writes f4 window j (quad j)
+// the next launch reads or by frame_sub_kernel after the last.  fin (rn 0):
+// 2 takes the frame minimum of the final metrics into `fmin`, left for the
+// caller (the entry shift of a remainder after the quads); 3 (with the tail)
+// the minimum before the last step, subtracted by frame_sub_kernel.  fresh: the entry minimum's pass zeroes
+// `off` (a call's first launch).  m_tmp is read only where there are two
+// launches or more.  mode kWords writes words; kF4 writes f4 window j (quad j)
 // at tab + j * 4 B W; kF8 (even nq) writes f8 window j / 2 at tab + (j / 2)
 // * 8 B W.
 template <int R>
 cudaError_t run_quads(int mode, const int* m_in, const int* sym, const Code& c, const Quad& qd,
                       int* m_out, int* m_tmp, int* tab, int* off, int* mins, int nmins,
-                      const int* entry, int* fmin, int fin, int K, int low, int hl, int B,
+                      const int* entry, int* fmin, int fin, int fresh, int K, int low, int hl, int B,
                       int T_sym, int t0, int nq, int tail, int rn, long long wsb, long long wst,
                       cudaStream_t s) {
   const int S = 1 << (K - 1), W = S >> 5;
@@ -465,7 +470,7 @@ cudaError_t run_quads(int mode, const int* m_in, const int* sym, const Code& c, 
   cudaError_t err = cudaSuccess;
   const int* sub = entry;
   if (sub == nullptr && nmins > 0) {
-    err = frame_min(m_in, S, B, mins, s);
+    err = frame_min(m_in, S, B, mins, fresh ? off : nullptr, s);
     if (err != cudaSuccess) return err;
     sub = mins + (size_t)B * row++;
   }
@@ -479,7 +484,7 @@ cudaError_t run_quads(int mode, const int* m_in, const int* sym, const Code& c, 
     const int t = t0 + 4 * q0;
     int at = shift_after(q0 + n - 1) ? 2 : (n == 2 && shift_after(q0) ? 1 : 0);
     int* mn = nullptr;
-    if (tail && last && fin) {
+    if (last && fin) {
       at = fin;
       mn = fmin;
     } else if (at) {
@@ -512,7 +517,7 @@ cudaError_t run_quads(int mode, const int* m_in, const int* sym, const Code& c, 
       err = LAUNCH(kF8, 8);
 #undef LAUNCH
     if (err != cudaSuccess) return err;
-    sub = (tail && last && fin == 2) ? nullptr : mn;
+    sub = (last && fin == 2) ? nullptr : mn;
     src = dst;
     q0 += n;
   }
@@ -533,17 +538,20 @@ extern "C" {
 // mode 0).  polys, inv, hl as viterbi_acs_large; mins [nmins, B] (INT_MAX)
 // as there, nmins = 0 for no shift of its own; rn counts quads.  entry: a [B]
 // row holding the pending shift for the first read (null for none given);
-// fin, fmin: see run_quads (fin 0: none).  Returns the first CUDA error, or 0.
+// fin, fmin: see run_quads (fin 0: none; fin 2 with rn 0, fin 3 with the
+// tail).  fresh: see run_quads (the entry shift taken here).  m_tmp: null
+// where the plan is one launch.  Returns the first CUDA error, or 0.
 int viterbi_acs_large4(int mode, const void* m_in, const void* sym, const int* polys,
                        void* m_out, void* m_tmp, void* tab, void* off, void* mins, int nmins,
-                       const void* entry, void* fmin, int fin, int K, int R, int inv, int low,
-                       int hl, int B, int T_sym, int t0, int nq, int tail, int rn, long long wsb,
-                       long long wst, void* stream) {
+                       const void* entry, void* fmin, int fin, int fresh, int K, int R, int inv,
+                       int low, int hl, int B, int T_sym, int t0, int nq, int tail, int rn,
+                       long long wsb, long long wst, void* stream) {
   if (mode < kWords || mode > kF8 || K < 10 || K > 24 || R < 1 || R > 2 || B < 1 || B > 65535 ||
       nq < 0 || nq + tail < 1 || (tail != 0 && tail != 3) || (tail && mode != kWords) ||
       nmins < 0 || rn < 0 || (nmins == 0 && rn != 0) || (tail && rn != 0) || fin < 0 ||
-      fin == 1 || fin > 3 || (fin && (!tail || fmin == nullptr)) || t0 < 0 ||
-      t0 + 4 * nq + tail > T_sym || (mode == kF8 && nq % 2 != 0))
+      fin == 1 || fin > 3 || (fin == 3 && !tail) || (fin && (rn != 0 || fmin == nullptr)) ||
+      (fresh && (entry != nullptr || nmins == 0)) || t0 < 0 || t0 + 4 * nq + tail > T_sym ||
+      (mode == kF8 && nq % 2 != 0))
     return (int)cudaErrorInvalidValue;
   const Code c = make_code(polys, K, R, inv, low, hl);
   const Quad qd = make_quad(c, K, R);
@@ -554,10 +562,10 @@ int viterbi_acs_large4(int mode, const void* m_in, const void* sym, const int* p
       *fm = (int*)fmin;
   const cudaStream_t s = (cudaStream_t)stream;
   if (R == 1)
-    return (int)run_quads<1>(mode, mi, sy, c, qd, mo, mt, tb, of, mn, nmins, en, fm, fin, K, low,
-                             hl, B, T_sym, t0, nq, tail, rn, wsb, wst, s);
-  return (int)run_quads<2>(mode, mi, sy, c, qd, mo, mt, tb, of, mn, nmins, en, fm, fin, K, low, hl,
-                           B, T_sym, t0, nq, tail, rn, wsb, wst, s);
+    return (int)run_quads<1>(mode, mi, sy, c, qd, mo, mt, tb, of, mn, nmins, en, fm, fin, fresh, K,
+                             low, hl, B, T_sym, t0, nq, tail, rn, wsb, wst, s);
+  return (int)run_quads<2>(mode, mi, sy, c, qd, mo, mt, tb, of, mn, nmins, en, fm, fin, fresh, K,
+                           low, hl, B, T_sym, t0, nq, tail, rn, wsb, wst, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Measure the large-K kernels on one GPU.
 
     python3 -m ka9q_viterbi_comparison_tpu_torch.harness.probe_large [--sass FILE] [--trace DIR]
+    python3 -m ka9q_viterbi_comparison_tpu_torch.harness.probe_large --plan
 
 Builds the kernels as the port does and writes each kernel's registers,
 shared memory and spills (``cuobjdump -res-usage`` of the two large-K
@@ -14,13 +15,21 @@ soft8 B=8 T=87 beside their metric-traffic floor, and the streaming pair at
 ICE.  With ``--trace DIR``, three ``_fields8`` calls at
 that shape run under ``harness.profiling.device_trace`` (a Chrome trace in
 ``DIR``), and it prints the device time by kernel and the device's idle
-share over their span.  Every line carries the card's name and power limit.
-Needs a CUDA device.
+share over their span.  With ``--plan`` it does only this: ``acs_update_large``
+in the form ``large_k.plan`` picks against the route it replaces (one launch
+of the step kernel a step after a frame-minimum pass,
+``large_k.launch_large(..., steps=1, nl=T)``), both held against the plain
+version and timed in turns on the same inputs, at Cassini soft8 B=64 T=1031
+and T=1 and ICE soft8 B=8 T=87 and T=1, with each call's kernel launches from
+a profiler trace and the bound; then the step kernel's pass alone at ICE
+B=8 T=1.  Every line carries the card's name and power limit.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -28,10 +37,11 @@ import numpy as np
 import torch
 
 from .. import VITERBI224, VITERBI615, CodeSpec, soft8_spec
-from ..ops.cuda import _build, large_k2, large_k4
+from ..ops.cuda import _build, large_k, large_k2, large_k4
 
 SEED = 7
 HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.73e12  # 132 SMs x 64 INT32 lanes x 1.98 GHz
 
 
 def card_tag() -> str:
@@ -117,6 +127,95 @@ def cluster_sizes(tag, rng) -> bool:
     return ok
 
 
+def acs_bound(code, B, T, words=True):
+    """Least time of ``T`` ACS steps (ms, and by what): each input and
+    output once (symbols, metrics in and out, words), or the int32
+    operations (the 2^R penalty sums of R terms a step, 6 a state and
+    step), whichever is longer."""
+    S, W, R = code.num_states, code.decision_words, code.R
+    t_bytes = 4 * B * (T * R + 2 * S + (T * W if words else 0)) / HBM_BYTES_PER_S * 1e3
+    t_ops = B * T * ((1 << R) * R + 6 * S) / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_launches(fn) -> dict[str, int]:
+    """The kernel launches of one call of ``fn`` in a profiler trace:
+    kernel name -> launches (empty where the profiler records no device
+    time)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            hit = re.search(r"(\w+)(?:<[^()]*>)?\(", e.key)
+            name = hit.group(1) if hit else e.key.strip()[:40]
+            counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
+def plan_mode(tag, rng) -> bool:
+    """``acs_update_large`` in its plan's form against the one-launch-a-step
+    route, in turns (route, plan, plan, route) on the same inputs.  Returns
+    whether every result equalled the plain version."""
+    ok = True
+    for code, B, T in ((VITERBI615, 64, 1031), (VITERBI615, 64, 1), (VITERBI224, 8, 87),
+                       (VITERBI224, 8, 1)):
+        numeric = soft8_spec(code.R)
+        m, sym = inputs(code, numeric, B, T, rng)
+        W = code.decision_words
+
+        def old():
+            words = torch.empty((B, T, W), dtype=torch.int32, device=m.device)
+            off = torch.zeros((B,), dtype=torch.int32, device=m.device)
+            mo = large_k.launch_large("acs_update_large", 1, code, numeric, m, sym, words, off,
+                                      (T * W, W), 0, T)
+            return mo, words, off
+
+        def new():
+            return large_k.acs_update_large(code, numeric, m, sym)
+
+        want = large_k.acs_update_large_ref(code, numeric, m, sym)
+        same = [all(torch.equal(a, b) for a, b in zip(fn(), want)) for fn in (old, new)]
+        ok &= all(same)
+        del want
+        iters = 5 if T > 1 else 50
+        times = {"route": [], "plan": []}
+        for name in ("route", "plan", "plan", "route"):
+            times[name].append(timed_ms(old if name == "route" else new, iters))
+        p = large_k.plan(code, B, T)
+        bnd = acs_bound(code, B, T)
+        for name, fn in (("one launch a step", old), (f"plan ({p.form})", new)):
+            counts = kernel_launches(fn)
+            ms = times["route" if fn is old else "plan"]
+            print(f"[{tag}] acs_update_large {code.name} soft8 B={B} T={T}, {name}: "
+                  f"{ms[0]:.4f} / {ms[1]:.4f} ms, {sum(counts.values())} kernel launches "
+                  f"(device trace: {counts}), equal to the plain version "
+                  f"{same[0] if fn is old else same[1]}; bound {bnd[0]:.5f} ms ({bnd[1]}), "
+                  f"{100 * bnd[0] / min(ms):.1f}% of bound; plan: {p.launches} launches, "
+                  f"segments {p.segments}", flush=True)
+        del m, sym
+        torch.cuda.empty_cache()
+    # The step kernel's pass alone at ICE B=8 T=1 (the entry shift not taken).
+    code, numeric, B = VITERBI224, soft8_spec(2), 8
+    m, sym = inputs(code, numeric, B, 1, rng)
+    W = code.decision_words
+    words = torch.empty((B, 1, W), dtype=torch.int32, device=m.device)
+    off = torch.zeros((B,), dtype=torch.int32, device=m.device)
+    ms = timed_ms(lambda: large_k.launch_large("acs_update_large", 1, code, numeric, m, sym, words,
+                                               off, (W, W), 0, 1, shifts=False), 50)
+    bnd = acs_bound(code, B, 1)
+    print(f"[{tag}] acs_large_step_kernel ice B={B} T=1, the pass alone: {ms:.4f} ms, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f}% of bound", flush=True)
+    return ok
+
+
 def trace(tag, log_dir, code, numeric, m, sym):
     """Three ``_fields8`` calls under the profiler: device time by kernel,
     and the idle share of the device over the span CUDA events measure."""
@@ -159,6 +258,11 @@ def main() -> int:
     if sass is not None:
         pathlib.Path(sass).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(sass).write_text("")
+    if "--plan" in sys.argv:
+        if not plan_mode(tag, rng):
+            print("FAIL: a kernel disagrees with its plain version")
+            return 1
+        return 0
     res_usage(tag, sass)
     ok = True
 

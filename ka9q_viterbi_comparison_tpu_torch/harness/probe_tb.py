@@ -36,7 +36,7 @@ from ka9q_viterbi_comparison_tpu_torch import (CodeSpec, VITERBI27, VITERBI29, V
                                                VITERBI49, VITERBI615, ViterbiDecoder, soft8_spec,
                                                soft16_spec)
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (_build, dispatch, inplace, kernels,
-                                                        kernels2, large_k2, large_k4)
+                                                        kernels2, large_k, large_k2, large_k4)
 
 SEED = 7
 
@@ -138,11 +138,15 @@ def near_limit_cases(rng):
     minimum far from zero, through every route of the launch plans: the pair
     kernel on chip (Cassini) and streaming (a K=10 R=7 code, whose blocks are
     too small for the on-chip form), odd and even; the depth-4 forms' 7-step
-    launch, quads and a remainder, no remainder, the fields forms' one-launch
-    leads and a lead of quads and pairs.  Yields ``(module, name, args)``
-    on the card, four frames each."""
+    launch, quads and a remainder (on chip at K=12; at K=18, where the frame
+    streams, with the remainder's entry shift from the last quad launch), no
+    remainder, the fields forms' one-launch leads and a lead of quads and
+    pairs; ``acs_update_large`` in its three forms (on chip, octets with a
+    7-step launch or a step after the quads, streaming).  Yields ``(module,
+    name, args)`` on the card, four frames each."""
     k12 = CodeSpec("k12r2", 12, 2, (0o6731, 0o5247))
     k10 = CodeSpec("k10r7", 10, 7, (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621))
+    k18 = CodeSpec("k18r2", 18, 2, (0o647153, 0o526715))
     for mod, name, code, T, lead in (
             (large_k2, "acs_update_large2", VITERBI615, 9, ()),
             (large_k2, "acs_update_large2", VITERBI615, 10, ()),
@@ -152,7 +156,11 @@ def near_limit_cases(rng):
             (large_k4, "acs_update_large4_fields", k12, 11, (3,)),
             (large_k4, "acs_update_large4_fields", k12, 13, (5,)),
             (large_k4, "acs_update_large4_fields8", k12, 15, (7,)),
-            (large_k4, "acs_update_large4_fields8", k12, 13, (5,))):
+            (large_k4, "acs_update_large4_fields8", k12, 13, (5,)),
+            (large_k4, "acs_update_large4", k18, 9, ()), (large_k4, "acs_update_large4", k18, 10, ()),
+            (large_k, "acs_update_large", VITERBI615, 9, ()),
+            (large_k, "acs_update_large", k18, 7, ()), (large_k, "acs_update_large", k18, 9, ()),
+            (large_k, "acs_update_large", k10, 9, ())):
         sym = torch.from_numpy(rng.integers(-3, 4, size=(4, T, code.R)).astype(np.int32)).cuda()
         m = torch.from_numpy(rng.integers(2**31 - 64, 2**31 - 1, size=(4, code.num_states))
                              .astype(np.int32)).cuda()

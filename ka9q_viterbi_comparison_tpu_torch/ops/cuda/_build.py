@@ -64,12 +64,12 @@ _SIGNATURES = {
     "viterbi_acs_inplace_smem": (_I, _I, _I),
     "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),
     "viterbi_chainback_inplace": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
+    "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large2_chip": (_P, _P, _PI, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _L, _L, _L, _L, _P),
+                                _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large4": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _L, _L, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P),
 }
 
 _build_seconds: list[float] = []

@@ -10,7 +10,8 @@ trellis and the batch).  Larger trellises (K=24), and small ones whose blocks
 have fewer threads than a pair has table entries, stream:
 ``acs_large_pair_kernel``, one launch a pair with the metrics in device
 memory, the launch loop inside the C launcher, and an odd step count ends in
-one ``large_k.acs_update_large`` step, as in the JAX package.  The choice is
+one launch of the step kernel (counted as ``acs_update_large``), as in the JAX
+package.  The choice is
 made on the shape alone.  Beside the wrapper is its
 plain PyTorch version (``acs_update_large2_ref``) with the same contract.  A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -159,7 +160,7 @@ def launch_block(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
                  symbols: torch.Tensor, words: torch.Tensor, offset: torch.Tensor,
                  strides: tuple[int, int], t0: int, T: int, metric_dtype: str | None = None,
                  g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0),
-                 shifts: bool = True):
+                 shifts: bool = True, entry: torch.Tensor | None = None):
     """Steps ``[t0, t0 + T)`` of ``symbols`` as one ``acs_update_large2``
     block on the card, on the schedule of a ``T``-step block: where the frame
     fits on chip, one launch of the on-chip kernel; else ``T // 2`` launches
@@ -173,7 +174,10 @@ def launch_block(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
     With ``shifts=False`` (a block inside a call whose entry shift was taken,
     and whose caller shifts next) the streaming form skips every shift, each
     a pass over the metrics.  The entry shift of a block with ``shifts`` is
-    always taken, so that entry metrics near the int32 limit cannot wrap."""
+    always taken, so that entry metrics near the int32 limit cannot wrap.
+    ``entry`` (streaming only): a ``[B]`` row holding the block's entry
+    shift, the frame minimum that the launch before took, so that the first
+    launch makes no pass of its own for it."""
     _, rn = renorm_schedule(code, numeric, T, metric_dtype)
     blocks = chip_blocks(code, metrics.shape[0])
     if blocks:
@@ -182,31 +186,37 @@ def launch_block(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
     m = metrics
     if T >= 2:
         m = launch_large("acs_update_large2", 2, code, numeric, m, symbols, words, offset,
-                         strides, t0, T // 2, rn if shifts else 0, g2, g2_strides, shifts)
+                         strides, t0, T // 2, rn if shifts else 0, g2, g2_strides, shifts, entry)
+        entry = None
     if T % 2:
         m = launch_large("acs_update_large", 1, code, numeric, m, symbols, words, offset,
-                         strides, t0 + T - 1, 1, shifts=shifts)
+                         strides, t0 + T - 1, 1, shifts=shifts, entry=entry)
     return m
 
 
 def launch_chip(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
                 symbols: torch.Tensor, words: torch.Tensor, offset: torch.Tensor,
                 strides: tuple[int, int], t0: int, T: int, rn: int, blocks: int,
-                g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0)):
+                g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0),
+                counter: str = "acs_update_large2", fresh: bool = False,
+                tail_shift: bool = True):
     """Check and call the on-chip launcher of ``csrc/viterbi_large.cu``: one
     launch for steps ``[t0, t0 + T)``, ``blocks`` blocks a frame (1, 2 or
-    4), renormalising after every ``rn``-th pair.  Returns the final metrics
-    ``[B, S]`` int32."""
+    4), renormalising after every ``rn``-th pair; an odd ``T``'s last step
+    takes its own entry shift unless ``tail_shift`` is off (as in
+    ``acs_update_large``).  ``offset`` accumulates the shifts (``fresh``: is
+    set to them).  Returns the final metrics ``[B, S]`` int32."""
     B, T_sym, R = symbols.shape
     _build.check_cuda_int32("metrics", metrics, (B, code.num_states))
     _build.check_cuda_int32("symbols", symbols, (B, T_sym, R))
     _build.check_cuda_int32("offset", offset, (B,))
     m_out = torch.empty_like(metrics)
     polys = (ctypes.c_int * R)(*code.abs_polys())
-    _build.launch("acs_update_large2", "viterbi_acs_large2_chip", metrics.device,
+    _build.launch(counter, "viterbi_acs_large2_chip", metrics.device,
                   metrics.data_ptr(), symbols.data_ptr(), polys, m_out.data_ptr(),
                   words.data_ptr(), g2.data_ptr() if g2 is not None else None, offset.data_ptr(),
-                  blocks, *code_args(code, numeric), B, T_sym, t0, T, rn, *strides, *g2_strides)
+                  blocks, *code_args(code, numeric), B, T_sym, t0, T, rn, int(fresh),
+                  int(tail_shift), *strides, *g2_strides)
     return m_out
 
 

@@ -16,7 +16,11 @@ launches the kernel or raises.
 the 1-3 steps past the last whole quad run as an ``acs_update_large2`` block
 of their own (entry shift, pair, odd tail), or, three of them with no
 in-scan renormalisation, with the last quad as one 7-step launch (a quad and
-a three-level tri).
+a three-level tri).  One or two of them with no in-scan renormalisation,
+where the frame streams (K >= 18), take their entry shift from the last quad
+launch, which leaves the frame minimum of its finals (``fin=2``): the
+remainder is one pass.  ``large_k.acs_update_large`` runs the same launches
+with the entry shift only.
 
 The fields forms return a walk table for ``ops.radix_planes`` instead of
 words.  The survivor's predecessor is the traceback's next state, so the
@@ -53,7 +57,7 @@ from . import _build, large_k
 from .kernels import _state_order_words
 from .large_k import (_check_inputs, _shift_to_zero, code_args, launch_args, metric_dtype_for,
                       pick_state_block)
-from .large_k2 import DTYPES, acs_update_large2_ref, launch_block, words_buffer
+from .large_k2 import DTYPES, acs_update_large2_ref, chip_blocks, launch_block, words_buffer
 
 __all__ = ["acs_update_large4", "acs_update_large4_ref", "acs_update_large4_fields",
            "acs_update_large4_fields_ref", "acs_update_large4_fields8",
@@ -188,7 +192,7 @@ def launch_quads(counter: str, mode: int, code: CodeSpec, numeric: NumericSpec,
                  metrics: torch.Tensor, symbols: torch.Tensor, table: torch.Tensor,
                  offset: torch.Tensor, strides: tuple[int, int], t0: int, nq: int,
                  rn: int, tail: int = 0,
-                 entry: torch.Tensor | None = None, fin: int = 0):
+                 entry: torch.Tensor | None = None, fin: int = 0, fresh: bool = False):
     """Check and call the launcher of ``csrc/viterbi_large4.cu``: ``nq``
     quads from step ``t0`` of ``symbols`` (``nq // 2`` octet launches, then a
     lone quad for odd ``nq``), renormalising after every ``rn``-th quad,
@@ -196,18 +200,24 @@ def launch_quads(counter: str, mode: int, code: CodeSpec, numeric: NumericSpec,
     one 7-step launch.  ``table``: the words (``strides``: their frame and
     step strides) or the f4 / f8 table.  ``entry``: a ``[B]`` row holding
     the entry shift, computed by an earlier call (else the first launch
-    takes the frame minimum of ``metrics``).  ``fin`` (with the tail): 2 returns the frame minimum of the final
-    metrics, unsubtracted, for the next call's entry; 3 shifts by the
-    minimum before the last step.  Returns the final metrics ``[B, S]``
-    int32, and with ``fin=2`` that minimum; ``table`` and ``offset`` are
-    filled in place."""
-    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, nq, rn)
+    takes the frame minimum of ``metrics``).  ``fin`` (with ``rn = 0``): 2 returns the frame
+    minimum of the final metrics, unsubtracted, for the next call's entry; 3
+    (with the tail) shifts by the minimum before the last step.  ``fresh``:
+    the entry minimum's pass zeroes ``offset`` first.  Returns the final
+    metrics ``[B, S]`` int32, and with ``fin=2`` that minimum; ``table`` and
+    ``offset`` are filled in place."""
+    lq = max(nq - 1, 0) if tail else nq  # quads before the tail's launch
+    launches = lq // 2 + lq % 2 + (1 if tail else 0)
+    nmins = (1 if entry is None else 0) + (nq // rn if rn else 0)
+    m_out, scratch, _alive = launch_args(code, metrics, symbols, offset, launches, nmins,
+                                         fill=rn > 0)
     B = metrics.shape[0]
     fmin = (torch.full((B,), large_k.INT32_MAX, dtype=torch.int32, device=metrics.device)
             if fin else None)
     _build.launch(counter, "viterbi_acs_large4", metrics.device, mode, *scratch[:5],
                   table.data_ptr(), *scratch[5:], entry.data_ptr() if entry is not None else None,
-                  fmin.data_ptr() if fmin is not None else None, fin, *code_args(code, numeric),
+                  fmin.data_ptr() if fmin is not None else None, fin, int(fresh),
+                  *code_args(code, numeric),
                   *symbols.shape[:2], t0, nq, tail, rn, *strides)
     return (m_out, fmin) if fin == 2 else m_out
 
@@ -237,6 +247,14 @@ def acs_update_large4(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tenso
     words, strides = words_buffer(B, T, code.decision_words, time_major, metrics.device)
     offset = torch.zeros((B,), dtype=torch.int32, device=metrics.device)
     m = metrics
+    if T % 4 in (1, 2) and T > 4 and rn == 0 and not chip_blocks(code, B):
+        # The remainder's entry shift is the frame minimum after the quads,
+        # which their last launch takes: the remainder is one pass.
+        m, entry = launch_quads("acs_update_large4", MODE_WORDS, code, numeric, m, symbols, words,
+                                offset, strides, 0, T // 4, 0, fin=2)
+        m = launch_block(code, numeric, m, symbols, words, offset, strides, 4 * (T // 4), T % 4,
+                         metric_dtype, entry=entry)
+        return m, words, offset
     if T % 4 == 3 and T > 4 and rn == 0:
         # The remainder's shifts (its entry, its tail's entry) add up to the
         # minimum before the last step: the last quad and the remainder run

@@ -366,24 +366,33 @@ def test_cuda_large2_fit_edge(cuda_device, K, R, polys, on_chip):
 # Entry metrics within 64 of the int32 limit (so that a step's penalties
 # carry most of them past it), their minimum far from zero:
 # the plain version shifts them to zero first, as the JAX package does; a
-# call whose first launch skipped that shift would wrap.  The on-chip form
-# (Cassini) and the streaming one (a K=10 R=7 code, whose blocks are too small
-# for the on-chip form), at odd and even lengths.
+# call whose first launch skipped that shift would wrap.  Both entry points
+# in every form: on chip (Cassini), streaming (a K=10 R=7 code, whose blocks
+# are too small for the on-chip form) and, for ``acs_update_large``, octets
+# (a K=18 R=2 code, whose frame does not fit on chip; ``acs_update_large2``
+# streams it), at odd and even lengths.
+K10R7 = (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["large2", "large"])
 @pytest.mark.parametrize("K,polys,T", [
-    (15, J.VITERBI615.polys, 9), (15, J.VITERBI615.polys, 10),
-    (10, (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621), 9),
-    (10, (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621), 10)],
-    ids=["cassini-odd", "cassini-even", "k10r7-streaming-odd", "k10r7-streaming-even"])
-def test_cuda_entry_metrics_near_the_limit(cuda_device, K, polys, T):
+    (15, J.VITERBI615.polys, 9), (15, J.VITERBI615.polys, 10), (10, K10R7, 9), (10, K10R7, 10),
+    (18, (0o647153, 0o526715), 9), (18, (0o647153, 0o526715), 10)],
+    ids=["cassini-odd", "cassini-even", "k10r7-streaming-odd", "k10r7-streaming-even",
+         "k18r2-odd", "k18r2-even"])
+def test_cuda_entry_metrics_near_the_limit(cuda_device, fn, K, polys, T):
     pc = code_from_fields(f"k{K}r{len(polys)}", K, len(polys), polys)
     pn = numeric_from_fields(**dataclasses.asdict(J.soft8_spec(pc.R)))
     assert (plk2.chip_blocks(pc, 3) > 0) == (K == 15)
+    if fn == "large":
+        assert plk.plan(pc, 3, T).form == {15: "chip", 10: "stream", 18: "octets"}[K]
     rng = np.random.default_rng(K + T)
     s = torch.from_numpy(rng.integers(-3, 4, size=(3, T, pc.R)).astype(np.int32)).cuda()
     m = torch.from_numpy(rng.integers(2**31 - 64, 2**31 - 1, size=(3, pc.num_states))
                          .astype(np.int32)).cuda()
-    got = plk2.acs_update_large2(pc, pn, m, s)
-    want = plk2.acs_update_large2_ref(pc, pn, m, s)
+    mod, name = (plk2, "acs_update_large2") if fn == "large2" else (plk, "acs_update_large")
+    got = getattr(mod, name)(pc, pn, m, s)
+    want = getattr(mod, name + "_ref")(pc, pn, m, s)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
