@@ -10,10 +10,11 @@ tap both register ends, chained halves; the state-order ACS through both of
 its entry points at K=2..10, R=1..6, batches of 1, 33 and 130;
 ``acs_update_large`` in each form of its plan: on chip at Cassini, octets at
 ICE, streaming at K=10 R=7, with its launcher calls counted; the large-K
-launch plans from entry metrics at the int32 limit), then drives six paths --
+launch plans from entry metrics at the int32 limit), then drives eight paths --
 through ``ViterbiDecoder(backend="cuda")``,
-``dispatch.phase_fns`` and the benchmark runner -- each with the launch counts
-zeroed just before it and read just after:
+``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder`` and the BER
+harness -- each with the launch counts zeroed just before it and read just
+after:
 
 * VITERBI27 (K=7, r=1/2) soft8, 1024-byte frames: B=512 (the in-place pair)
   and B=64 (the state-order pair);
@@ -37,13 +38,26 @@ zeroed just before it and read just after:
   through ``phase_fns`` with its chains of three links;
 * the benchmark runner (``harness.runner.run_matrix``, ``backends=["cuda"]``):
   all six codes at its default batches and the reference's frame sizes,
-  every numeric spec, 16 rows of reference-schema JSON with bit error rate 0.
+  every numeric spec, 16 rows of reference-schema JSON with bit error rate 0;
+* streams through ``StreamingDecoder(backend="cuda")``: VITERBI27 soft8 at
+  B=512 (the in-place pair) and B=64 (the state-order pair) in 16 pushes of
+  2046 steps, Cassini soft8 at B=256 in 4 pushes of 2044 steps: the released
+  bits equal the data, a decoder restored from a checkpoint taken after the
+  second push releases the same bits, two noisy pushes equal
+  ``backend="torch"``'s; the steady-state push rate beside the batch update
+  rate of the same code and batch;
+* the AWGN and replica path: ``harness.ber.measure_ber`` at VITERBI27 soft16,
+  B=512, 256-byte frames, 3 dB on the kernels (coded BER below uncoded); the
+  ka9q- and SPIRAL-exact u8 replicas at K=7 and K=9, B=512, 1024-byte AWGN
+  frames on the card, their first 8 frames byte-identical to the CPU's; the
+  runner's ``cpu_native`` rows (the host C++ decoder) for viterbi27 and
+  viterbi615.
 
 Then it times the kernels and the decoders' phases with CUDA events, and
-counts the launches a call of the state-order and large-K updates from a
-profiler trace (``acs_update_large``: as many as ``large_k.plan`` gives,
-one a call on chip).  Every
-number line carries the card's name and power limit.  The last three lines
+counts the launches a call of the state-order and large-K updates
+(``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
+chip) and the device operations of a steady stream push from a profiler
+trace.  Every number line carries the card's name and power limit.  The last three lines
 are a JSON object listing the kernels, the card's name and power limit, and a
 JSON object ``{"ok": true, "device": ...}``.
 
@@ -75,12 +89,15 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     VITERBI49,
     VITERBI224,
     VITERBI615,
+    BENCH_FRAME_BYTES,
+    StreamingDecoder,
     ViterbiDecoder,
+    ka9q_offset_binary_spec,
     soft8_spec,
     soft16_spec,
 )
-from ka9q_viterbi_comparison_tpu_torch.harness import probe_tb, runner  # noqa: E402
-from ka9q_viterbi_comparison_tpu_torch.ops import radix_planes  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.harness import ber, probe_tb, runner  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.ops import channel, quantized, radix_planes  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
     dispatch,
@@ -91,7 +108,7 @@ from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     large_k2,
     large_k4,
 )
-from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_frames  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_bits, encode_frames  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.utils.bits import bits_to_bytes, count_bit_errors  # noqa: E402
 
 SEED = 20261016
@@ -101,6 +118,14 @@ B_TB2 = 1024                # the depth-2 kernel's batch (K <= 9, in-place route
 CAS_BYTES = 256             # Cassini frames (T = 2062 steps)
 B_CAS_INPLACE, B_CAS_LARGE = 256, 64
 ICE_BYTES, B_ICE = 8, 8     # ICE frames (T = 87 steps)
+# Streams (path 7): (code, batch, steps a push, pushes, the update and walk of
+# its route).  K=7 at B=512 in 2046-step pushes is the state size of the JAX
+# package's own streaming probe (tools/streaming_probe.py); Cassini pushes are
+# whole rotation periods (146 * 14 steps).
+STREAMS = ((VITERBI27, 512, 2046, 16, ("acs_update_inplace", "chainback_inplace")),
+           (VITERBI27, 64, 2046, 16, ("acs_update_tb", "chainback_tb")),
+           (VITERBI615, 256, 2044, 4, ("acs_update_inplace", "chainback_inplace")))
+BER_BYTES, B_BER, BER_EBN0 = 256, 512, 3.0  # path 8's BER point, VITERBI27 soft16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # 132 SMs x 64 INT32 lanes x 1.98 GHz: the int32 issue rate of adds, compares
 # and selects (the data sheet's 33.5 TOP/s counts a multiply-add as two); every
@@ -1002,8 +1027,198 @@ def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
     return launches
 
 
+def trace_push(fn, attempts: int = 3) -> tuple[int, dict[str, int], str]:
+    """Device operations in one call of ``fn`` (after one untraced call), by
+    a profiler trace: ``(operations of any origin -- kernels, copies, fills --,
+    {port kernel: launches}, which trace)``.  A trace is complete when it
+    holds as many of the port's kernels as the wrappers' counters say the
+    call launched; an incomplete one is taken again, up to ``attempts``
+    times.  ``(-1, {}, ...)`` where the profiler recorded no device
+    operation."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, attempts + 1):
+        before = sum(_build.LAUNCHES.values())
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = sum(_build.LAUNCHES.values()) - before
+        device_ops = [e for e in prof.events()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        port = {}
+        for e in device_ops:
+            hit = re.search(r"(\w+)(<[^()]*>)?\(", e.name)
+            if hit and hit.group(1) in PORT_KERNELS:
+                port[hit.group(1)] = port.get(hit.group(1), 0) + 1
+        if not device_ops:
+            return -1, {}, f"trace {attempt}"
+        if sum(port.values()) >= launched:
+            return len(device_ops), port, f"trace {attempt}, complete"
+    return len(device_ops), port, f"{attempts} traces, each missing some of {launched} launches"
+
+
+def drive_stream(tag, rng, code, B, n, pushes, kernels_of_path):
+    """One stream of path 7 through ``StreamingDecoder(backend="cuda")``:
+    noiseless random bits in ``pushes`` pushes of ``n`` steps and a flush must
+    come out as the data; a decoder restored from the checkpoint taken after
+    the second push must release the same bits as the uninterrupted stream;
+    two pushes of noisy symbols must equal ``backend="torch"``'s.  The launch
+    counts are zeroed before and read after.  Then the steady-state push rate
+    (CUDA events over the pushes after the first two) beside the batch update
+    rate of the same code and batch; the device operations a push are traced
+    at the end of the run (``phase_launch_trace``)."""
+    numeric = soft8_spec(code.R)
+    L = pushes * n - (code.K - 1)  # data bits; the encoder's tail ends the stream
+    bits = rng.integers(0, 2, size=(B, L), dtype=np.uint8)
+    enc = encode_bits(code, torch.from_numpy(bits))
+    clean = torch.where(enc.bool(), numeric.soft_high, numeric.soft_low).to(torch.int32).cuda()
+    kept = COMPARED.get(("acs_update_inplace", None) if B >= 128 else ("acs_update_tb", None))
+    if code is CODE and kept is not None and kept[0][3].shape[0] >= 4 * n \
+            and kept[0][3].shape[2] == B:
+        noisy = kept[0][3].permute(2, 0, 1)  # a compared shape's [T, R, B] symbols
+        where = "the compared shape's symbols"
+    else:
+        noisy = noisy_symbols(numeric, B, rng, 3, code, (4 * n) // 8 + 1)[1]
+        where = "new symbols"
+    label = f"{code.name} B={B} {n}-step pushes"
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    dec = StreamingDecoder(code, numeric, B)
+    out, state = [], None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(pushes):
+        if i == 2:
+            start.record()
+        out.append(dec.push(clean[:, i * n:(i + 1) * n]))
+        if i == 1:
+            state = dec.checkpoint()
+    end.record()
+    out.append(dec.flush(0))
+    resumed = StreamingDecoder(code, numeric, B)
+    resumed.restore(state)
+    again = [resumed.push(clean[:, i * n:(i + 1) * n]) for i in range(2, pushes)]
+    again.append(resumed.flush(0))
+    noisy_dec = StreamingDecoder(code, numeric, B)
+    noisy_out = [noisy_dec.push(noisy[:, i * n:(i + 1) * n]) for i in range(2)]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[{tag}] stream {label} path launches: {json.dumps(launches)}")
+    for name in kernels_of_path:
+        if launches[name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was not launched on the stream {label}")
+
+    steady_ms = start.elapsed_time(end)
+    released = torch.cat(out, dim=1)
+    errors = count_bit_errors(bits_to_bytes(released[:, :L - L % 8]), np.packbits(
+        bits[:, :L - L % 8], axis=1))
+    whole = released.shape[1] == L and bool((released.cpu().numpy() == bits).all())
+    same_resumed = bool(torch.equal(torch.cat(again, dim=1), torch.cat(out[2:], dim=1)))
+    ref = StreamingDecoder(code, numeric, B, backend="torch")
+    ref_out = [ref.push(noisy[:, i * n:(i + 1) * n]) for i in range(2)]
+    same_noisy = all(torch.equal(a, b) for a, b in zip(noisy_out, ref_out)) \
+        and noisy_out[1].shape[1] == n
+    del ref, ref_out
+    rate = (pushes - 2) * n * B * code.R / (steady_ms * 1e-3) / 1e6
+    upd_ms, _ = decoder_phases(tag, code, numeric, B, CAS_BYTES if code.K > 9 else FRAME_BYTES,
+                               rng, f"{code.name} (batch, beside the stream)")
+    T_batch = code.transmit_bits(CAS_BYTES if code.K > 9 else FRAME_BYTES)
+    batch_rate = B * T_batch * code.R / (upd_ms * 1e-3) / 1e6
+    print(f"[{tag}] stream {label} ({'position' if dec._rotated else 'state'}-packed history): "
+          f"{pushes} noiseless pushes and a flush released {released.shape[1]} bits, bit errors "
+          f"{errors}, all equal to the data {whole}; restored after push 2: equal {same_resumed}; "
+          f"2 noisy pushes ({where}) equal to backend=torch {same_noisy}; steady state "
+          f"{(pushes - 2)} pushes in {steady_ms:.4f} ms = {steady_ms / (pushes - 2):.4f} ms a push "
+          f"= {rate:.1f} Msym/s; batch update {upd_ms:.4f} ms = {batch_rate:.1f} Msym/s")
+    if errors or not (whole and same_resumed and same_noisy):
+        raise SystemExit(f"FAIL: stream {label}")
+    del dec, resumed, noisy_dec, clean, noisy
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_awgn(tag, rng):
+    """Path 8: ``measure_ber`` at VITERBI27 soft16 on the kernels (coded BER
+    must lie below the uncoded); the ka9q and SPIRAL u8 replicas on AWGN
+    offset-binary symbols at K=7 and K=9 on the card, their first 8 frames
+    byte-identical to the same functions on the CPU; the launch counts zeroed
+    before and read after.  Then the runner's ``cpu_native`` rows for
+    viterbi27 and viterbi615 (the host decoder: no kernel)."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    point = ber.measure_ber(CODE, soft16_spec(2), BER_EBN0, frame_bytes=BER_BYTES, batch=B_BER,
+                            seed=SEED)
+    ber_s = time.perf_counter() - t0
+    lo, hi = point.ber_ci()
+    print(f"[{tag}] BER {CODE.name} soft16 B={B_BER} {BER_BYTES}-byte frames at {BER_EBN0} dB: "
+          f"{point.errors} errors in {point.bits} bits = {point.ber:.6g} (95 % Wilson interval "
+          f"[{lo:.6g}, {hi:.6g}]), FER {point.fer:.4g}, uncoded {point.uncoded_ber:.6g}; "
+          f"{ber_s:.3f} s")
+    if not (0 < point.ber < point.uncoded_ber):
+        raise SystemExit(f"FAIL: coded BER {point.ber} against uncoded {point.uncoded_ber}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    same = True
+    for code in (VITERBI27, VITERBI29):
+        data = rng.integers(0, 256, size=(B_BER, FRAME_BYTES), dtype=np.uint8)
+        sym = channel.awgn_symbols(code, ka9q_offset_binary_spec(), data, BER_EBN0, gen)
+        sym = sym.to(torch.uint8)
+        for fam, fn in (("ka9q", quantized.decode_symbols_ka9q),
+                        ("spiral", quantized.decode_symbols_spiral)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(code, sym, FRAME_BYTES * 8)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            cpu = fn(code, sym[:8].cpu(), FRAME_BYTES * 8, device="cpu")
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            ok = bool(torch.equal(out[:8].cpu(), cpu))
+            same = same and ok
+            print(f"[{tag}] {fam} replica {code.name} B={B_BER} {FRAME_BYTES}-byte frames at "
+                  f"{BER_EBN0} dB: {ms:.1f} ms on the card "
+                  f"({B_BER * code.transmit_bits(FRAME_BYTES) * 2 / ms / 1e3:.2f} Msym/s), bit "
+                  f"errors {count_bit_errors(out, data)}; first 8 frames equal to the CPU's {ok} "
+                  f"({cpu_ms:.1f} ms there)")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"[{tag}] AWGN and replica path launches: {json.dumps(launches)}")
+    for name in ("acs_update_inplace", "chainback_inplace", "chainback_tb"):
+        if launches[name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was not launched on the AWGN and replica path")
+    if not same:
+        raise SystemExit("FAIL: a u8 replica on the card differs from the CPU's")
+    # Cassini on the host takes over a second a 256-byte frame, so its rows
+    # decode one 64-byte frame.
+    for code, batch, n_bytes, samples in ((VITERBI27, None, None, 3), (VITERBI615, 1, 64, 1)):
+        out = io.StringIO()
+        saved, sys.stderr = sys.stderr, io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            runner.run_matrix(0.05, samples, out, codes=(code,), batch_override=batch,
+                              frame_bytes_override=n_bytes, seed=SEED, backends=["native"])
+            secs = time.perf_counter() - t0
+        finally:
+            sys.stderr = saved
+        rows = json.loads(out.getvalue())
+        for r in rows:
+            if set(r) != SCHEMA_KEYS or r["bit_error_rate"] != 0 or \
+                    not r["name"].startswith("cpu_native"):
+                raise SystemExit(f"FAIL: runner native row {r.get('name')} of {code.name}")
+            frame = n_bytes or BENCH_FRAME_BYTES[code.name]
+            print(f"[{tag}] runner {code.name} {r['name']} {r['total_input_bytes'] // frame} "
+                  f"{frame}-byte frames: update "
+                  f"{r['total_output_symbols'] / np.mean(r['update_ns']) * 1e3:.6g} Msym/s "
+                  f"({np.mean(r['update_ns']) / 1e6:.4f} ms), chainback "
+                  f"{r['total_bits'] / np.mean(r['chainback_ns']) * 1e3:.6g} Mbit/s, "
+                  f"{r['total_samples']} samples, bit error rate 0")
+        print(f"[{tag}] runner {code.name} native rows: {len(rows)} in {secs:.2f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_decode(tag, rng):
-    """The six paths; returns the launches of each kernel summed over the
+    """The eight paths; returns the launches of each kernel summed over the
     paths."""
     paths = [
         drive_path(tag, "K=7", CODE, soft8_spec(2), FRAME_BYTES, [(B_INPLACE, None), (B_TB, None)],
@@ -1023,6 +1238,9 @@ def phase_decode(tag, rng):
     paths.append(drive_phase_fns(tag, rng))
     paths.append(drive_tb2_path(tag, rng))
     paths.append(drive_runner(tag))
+    for code, B, n, pushes, kernels_of_path in STREAMS:
+        paths.append(drive_stream(tag, rng, code, B, n, pushes, kernels_of_path))
+    paths.append(drive_awgn(tag, rng))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
     zero = [name for name, n in launches.items() if n == 0]
     if zero:
@@ -1283,6 +1501,9 @@ PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_ste
 
 # The state-order ACS kernels.
 TB_KERNELS = ("acs_tb_warp_kernel", "acs_tb_block_kernel", "acs_tb2_block_kernel")
+# Every kernel of the port's sources.
+PORT_KERNELS = PASS_KERNELS + TB_KERNELS + ("acs_inplace_warp_kernel", "acs_inplace_block_kernel",
+                                            "chainback_kernel")
 
 
 def trace_launches(fn, names=PASS_KERNELS) -> dict[str, int]:
@@ -1317,7 +1538,8 @@ def phase_launch_trace(tag, rng, quads):
     of the large-K update forms at the paths' shapes, from a profiler trace
     (the wrappers' counters count one a call); µs a pass of the depth-4
     forms' quads from ``phase_timing_quad``'s times (a shift pass's time
-    included) over their ACS launches.  Last, so that the profiler runs
+    included) over their ACS launches; the device operations of a steady
+    push of each of path 7's streams.  Last, so that the profiler runs
     after every timing."""
     for name, fn, B in (("acs_update_tb", kernels.acs_update_tb, B_TB),
                         ("acs_update_tb2", kernels2.acs_update_tb2, B_TB2)):
@@ -1359,6 +1581,18 @@ def phase_launch_trace(tag, rng, quads):
         print(f"[{tag}] acs_update_large4 ice B={B_ICE} T={n} (path 3's block): "
               f"{launch_text(counts)} a call")
     del m, sym, m10, sym10, m_ice, sym_ice
+    # Path 7's streams: device operations in a steady push (the third).
+    for code, B, n, _, _ in STREAMS:
+        _, noisy = noisy_symbols(soft8_spec(code.R), B, rng, 3, code, (3 * n) // 8 + 1)
+        dec = StreamingDecoder(code, soft8_spec(code.R), B)
+        for i in range(2):
+            dec.push(noisy[:, i * n:(i + 1) * n])
+        n_ops, port, attempt = trace_push(lambda: dec.push(noisy[:, 2 * n:3 * n]))
+        print(f"[{tag}] stream {code.name} B={B} {n}-step pushes: " + (
+            "device operations not measured (the profiler recorded none)" if n_ops < 0 else
+            f"{n_ops} device operations a push ({attempt}), of them the port's kernels "
+            f"{json.dumps(port)}"))
+        del dec, noisy
     pass_ms = metric_pass_ms(B_ICE, ice)
     for name, (args, body, extra, nq, quads_ms, ms) in quads.items():
         fn = getattr(large_k4, name)
@@ -1473,7 +1707,7 @@ def main() -> int:
     phase_kernels_inplace_forms(tag, rng, errs)
     done("in-place forms comparisons")
     launches = phase_decode(tag, rng)
-    done("the six paths")
+    done("the eight paths")
     rows = phase_timing(tag, rng)
     done("K=7 and K=9 timing")
     phase_timing_large(tag, rng, rows)

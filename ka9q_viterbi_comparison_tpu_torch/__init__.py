@@ -27,6 +27,7 @@ from .configs import (
 )
 from .models.decoder import ViterbiDecoder, decode_frames
 from .models.functional import decode_fn, decode_symbols
+from .models.streaming import StreamingDecoder
 
 __version__ = "0.1.0"
 
@@ -34,6 +35,7 @@ __all__ = [
     "CodeSpec",
     "NumericSpec",
     "ViterbiDecoder",
+    "StreamingDecoder",
     "decode_frames",
     "decode_fn",
     "decode_symbols",

@@ -9,7 +9,8 @@ objects of it passes their fields and numpy arrays here:
     decoder_state_from_numpy(dec, np.asarray(jdec.metrics), np.asarray(words),
                              np.asarray(jdec.renorm_offset), jdec._steps)
 
-so that a stream started in JAX resumes in the port.  The state of the JAX
+so that a stream started in JAX resumes in the port; a ``StreamingDecoder``'s
+checkpoint crosses whole through ``streaming_checkpoint_from_jax``.  The state of the JAX
 package's native-layout phases (``dispatch.phase_fns``: metrics ``[S, B]``,
 words ``(dec [Tp, W, B], T, B)``) crosses through ``metrics_from_numpy`` and
 ``native_words_from_numpy`` into the port's phases of the same family.  The words must come
@@ -24,11 +25,11 @@ import numpy as np
 import torch
 
 from .configs import CodeSpec, NumericSpec
-from .models.decoder import ViterbiDecoder
+from .models.decoder import ViterbiDecoder, resolve_device
 
 __all__ = ["code_from_fields", "numeric_from_fields", "decoder_state_from_numpy",
            "words_from_numpy", "tables_from_numpy", "metrics_from_numpy",
-           "native_words_from_numpy"]
+           "native_words_from_numpy", "streaming_checkpoint_from_jax"]
 
 
 def code_from_fields(name: str, K: int, R: int, polys) -> CodeSpec:
@@ -94,3 +95,19 @@ def native_words_from_numpy(words_native, device: torch.device | str = "cpu"):
     if dec.ndim != 3 or dec.shape[0] < T or dec.shape[2] != B:
         raise ValueError(f"native words {tuple(dec.shape)} do not match T={T}, B={B}")
     return dec, int(T), int(B)
+
+
+def streaming_checkpoint_from_jax(state: dict, device: torch.device | str = "cuda") -> dict:
+    """The JAX package's ``StreamingDecoder.checkpoint()`` (arrays of any kind
+    ``np.asarray`` takes: metrics ``[B, S]`` int32, history ``[B, h, W]``
+    uint32) as the port's checkpoint on ``device``, for
+    ``StreamingDecoder.restore``.  The packing flag crosses unchanged: both
+    packages position-pack the in-place route's words alike."""
+    device = resolve_device(device)
+    return {
+        "metrics": metrics_from_numpy(np.asarray(state["metrics"]), device),
+        "history": words_from_numpy(np.asarray(state["history"]), device),
+        "steps_emitted": int(state["steps_emitted"]),
+        "abs_step": int(state["abs_step"]),
+        "rotated_history": bool(state.get("rotated_history", False)),
+    }

@@ -30,8 +30,11 @@ of that exists to cancel the constant cost and the jitter of a transport
 that acknowledges work before it has run.  CUDA events are recorded by the
 device itself, in stream order, so there is no constant to cancel and no
 early acknowledgement: one chain, its time over its links, is the
-measurement.  The ``"native"`` backend (the host C++ decoder) is not part of
-the port yet.
+measurement.
+
+The ``"native"`` backend is the host C++ decoder (``utils/native.py``), one
+``HostDecoder`` a frame: its phases run on the host and are timed with
+``perf_counter_ns``, one link a chain, as the JAX harness times them.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ..utils.bits import count_bit_errors
 __all__ = ["PhaseSample", "BenchResult", "run_phase_bench", "time_update_marginal",
            "time_update_phase", "sync"]
 
-BACKENDS = ("cuda", "torch")
+BACKENDS = ("cuda", "torch", "native")
 CHAIN_TARGET_NS = 4e6  # a chain should last about this long
 MAX_LINKS = 64
 
@@ -143,6 +146,8 @@ def _phases_for_backend(code: CodeSpec, numeric: NumericSpec, backend: str, num_
     (``dispatch.phase_fns``), ``"torch"`` the portable path."""
     from ..ops.cuda import dispatch
 
+    if backend == "native":
+        return _native_phases(code, numeric, num_data_bits)
     device = resolve_device(device)
     if backend == "cuda":
         return dispatch.phase_fns(code, numeric, num_data_bits, batch, device)
@@ -176,6 +181,40 @@ def _phases_for_backend(code: CodeSpec, numeric: NumericSpec, backend: str, num_
             *dispatch.make_chains(update_fn, _cb))
 
 
+def _native_phases(code: CodeSpec, numeric: NumericSpec, num_data_bits: int):
+    """The host decoder's phases: ``init_fn(batch)`` resets one
+    ``HostDecoder`` a frame (made at the first call), ``update_fn`` feeds each
+    its frame's symbols, ``chainback_fn`` stacks their bytes.  The decoders
+    are the state; ``metrics`` and ``words`` are ``None``."""
+    from ..ops.cuda import dispatch
+    from ..utils import native
+
+    decoders: list = []
+
+    def init_fn(batch: int):
+        if not decoders:
+            decoders.extend(native.HostDecoder(code, numeric, max_steps=0) for _ in range(batch))
+        for d in decoders:
+            d.reset()
+
+    def update_fn(metrics, sym_np):
+        for d, s in zip(decoders, sym_np):
+            d.update(s)
+        return None, None, None
+
+    def _cb(words, endstate):
+        return np.stack([d.chainback(num_data_bits // 8, int(endstate))[0] for d in decoders])
+
+    def chainback_fn(words):
+        return _cb(words, 0)
+
+    def prepare_fn(symbols):
+        return np.ascontiguousarray(symbols.cpu().numpy().reshape(symbols.shape[0], -1),
+                                    dtype=np.int32)
+
+    return (init_fn, update_fn, chainback_fn, prepare_fn, *dispatch.make_chains(update_fn, _cb))
+
+
 def _links_for(per_link_ns: float) -> int:
     return max(1, min(MAX_LINKS, math.ceil(CHAIN_TARGET_NS / max(per_link_ns, 1.0))))
 
@@ -203,16 +242,20 @@ def run_phase_bench(
     (init_fn, update_fn, chainback_fn, prepare_fn, make_cb_chain,
      make_up_chain) = _phases_for_backend(code, numeric, backend, num_data_bits, B, device)
     prepared = prepare_fn(symbols)  # the backend's own layout, untimed
+    if backend == "native":
+        device = torch.device("cpu")  # the host's clock
 
     # Warm-up (on the card: the kernels' build and first launch), and the
-    # probe that sizes the chains.
+    # probe that sizes the chains (the host decoder: one link a chain).
     metrics = init_fn(B)
     _, words, _ = update_fn(metrics, prepared)
     chainback_fn(words)
     sync()
     n_init = 4
-    n_up = _links_for(_timed_ns(lambda: update_fn(metrics, prepared), device)[0])
-    n_cb = _links_for(_timed_ns(lambda: chainback_fn(words), device)[0])
+    n_up = n_cb = 1
+    if backend != "native":
+        n_up = _links_for(_timed_ns(lambda: update_fn(metrics, prepared), device)[0])
+        n_cb = _links_for(_timed_ns(lambda: chainback_fn(words), device)[0])
     up_chain, cb_chain = make_up_chain(n_up), make_cb_chain(n_cb)
 
     def init_chain():
@@ -233,7 +276,7 @@ def run_phase_bench(
     # states; the correctness check decodes once more from reset metrics.
     _, words, _ = update_fn(init_fn(B), prepared)
     out = sync(chainback_fn(words))
-    errors = count_bit_errors(out.cpu(), data)
+    errors = count_bit_errors(out, data)
     return BenchResult(
         name=name,
         code=code,

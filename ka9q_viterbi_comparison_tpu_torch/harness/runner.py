@@ -12,10 +12,13 @@ The test matrix is the reference's six configs at its frame sizes
 * ``cuda``  -- the hand-written CUDA kernels through ``dispatch.phase_fns``
   (every config; on ``--device cpu`` their plain versions).
 * ``torch`` -- the portable tensor path (every config).
+* ``native`` -- the host C++ decoder (``utils/native.py``), one frame at a
+  time on the first ``NATIVE_BATCH`` frames, where ``g++`` is present: the
+  reference's own CPU family, the comparison baseline.
 
-Rows are named ``gpu_<backend>`` with the numeric spec's tag (``_s16``,
-``_ob``).  The run is on the card unless ``--device cpu`` is given, and
-raises without one.  Progress goes to stderr, samples to the JSON file -- the
+Rows are named ``gpu_<backend>`` (``cpu_native`` for the host decoder) with
+the numeric spec's tag (``_s16``, ``_ob``).  The run is on the card unless
+``--device cpu`` is given, and raises without one.  Progress goes to stderr, samples to the JSON file -- the
 reference's two output channels (ref: src/main.cpp:27-31).
 
     python -m ka9q_viterbi_comparison_tpu_torch.harness.runner -t 1 -n 8 -o out.json
@@ -43,7 +46,7 @@ from ..models.decoder import resolve_device
 from ..ops.encoder import encode_frames
 from .bench import BACKENDS, run_phase_bench
 
-__all__ = ["main", "run_matrix", "backends_for", "DEFAULT_BATCH", "KA9Q_CONFIGS"]
+__all__ = ["main", "run_matrix", "backends_for", "DEFAULT_BATCH", "NATIVE_BATCH", "KA9Q_CONFIGS"]
 
 # Frames per iteration and config: the JAX package's benchmark batches, so
 # that both packages name the same rows.  K <= 15 batches lie at or above the
@@ -58,6 +61,13 @@ DEFAULT_BATCH = {
     "viterbi224": 8,
 }
 
+# Frames per iteration for the serial cpu_native family (kept small: it is
+# the comparison baseline, not the throughput path); the JAX package's.
+NATIVE_BATCH = {
+    "viterbi27": 8, "viterbi47": 8, "viterbi29": 8, "viterbi49": 8,
+    "viterbi615": 2, "viterbi224": 1,
+}
+
 # Configs the reference also runs under the ka9q family's offset-binary
 # {0, 255} symbol convention (ref: src/viterbi_configs.h:15-20; the R=4 codes
 # have no ka9q decoder, ref: src/main.cpp:374-398).
@@ -65,8 +75,11 @@ KA9Q_CONFIGS = {"viterbi27", "viterbi29", "viterbi615", "viterbi224"}
 
 
 def backends_for(code: CodeSpec) -> list[str]:
-    """Both families serve every config."""
-    return list(BACKENDS)
+    """Both device families serve every config; the host decoder joins them
+    where ``g++`` is present."""
+    from ..utils import native
+
+    return ["cuda", "torch"] + (["native"] if native.available() else [])
 
 
 def run_matrix(
@@ -102,9 +115,14 @@ def run_matrix(
             symbols = encode_frames(code, numeric, torch.from_numpy(data)).to(device)
             for backend in (backends or backends_for(code)):
                 print(f"- {backend}", file=sys.stderr, flush=True)
+                if backend == "native":
+                    nb = min(B, NATIVE_BATCH[code.name])
+                    b_data, b_syms, name = data[:nb], symbols[:nb], f"cpu_native{tag}"
+                else:
+                    b_data, b_syms, name = data, symbols, f"gpu_{backend}{tag}"
                 result = run_phase_bench(
-                    code, numeric, data, symbols,
-                    name=f"gpu_{backend}{tag}", backend=backend,
+                    code, numeric, b_data, b_syms,
+                    name=name, backend=backend,
                     sampling_time=sampling_time, minimum_samples=minimum_samples,
                     device=device,
                 )

@@ -46,6 +46,8 @@ the shape the Pallas traceback kernels take too.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -55,7 +57,7 @@ from .. import acs, chainback as cb, radix_planes as rp
 from . import flags, inplace, kernels, kernels2, large_k2, large_k4
 
 __all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace", "supports",
-           "supports_chainback", "fits_shared", "unpack_bit_words"]
+           "supports_chainback", "fits_shared", "unpack_bit_words", "walk_bits", "walk_bytes"]
 
 
 def fits_shared(code: CodeSpec, device: torch.device) -> bool:
@@ -103,6 +105,13 @@ def unpack_bit_words(bits_words: torch.Tensor, T: int) -> torch.Tensor:
     return unpack_words_to_bits(bits_words.T)[:, :T]
 
 
+@functools.lru_cache(maxsize=None)
+def _rot_index(code: CodeSpec, t: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """``inplace.rot_perm`` on ``device``, uploaded once per phase: a block's
+    update then copies nothing from the host."""
+    return torch.as_tensor(inplace.rot_perm(code, t, inverse), device=device)
+
+
 def _inplace_update(code, numeric, metrics, symbols, t0):
     """Batch-major wrapper over the in-place kernel.  Metrics cross the call
     in state order: one gather each way at the block edges, at the rotation
@@ -114,10 +123,10 @@ def _inplace_update(code, numeric, metrics, symbols, t0):
     sym = symbols.to(torch.int32).permute(1, 2, 0).contiguous()  # [T, R, B]
     m = metrics.to(torch.int32).T
     if t0:
-        m = m[torch.as_tensor(inplace.rot_perm(code, t0), device=dev)]
+        m = m[_rot_index(code, t0, False, dev)]
     m, dec = inplace.acs_update_inplace(code, numeric, m.contiguous(), sym, T, t0)
     if (t0 + T) % nrot:
-        m = m[torch.as_tensor(inplace.rot_perm(code, t0 + T, inverse=True), device=dev)]
+        m = m[_rot_index(code, (t0 + T) % nrot, True, dev)]
     words = dec.permute(2, 0, 1)  # [B, T, W], position-packed
     return m.T.contiguous(), words, torch.zeros((B,), dtype=torch.int32, device=dev)
 
@@ -190,9 +199,24 @@ def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,
     inplace_route = use_inplace(code, B, words.device)
     Tp = inplace.pad_time_inplace(code, T)
     w = F.pad(words.to(torch.int32).permute(1, 2, 0), (0, 0, 0, 0, 0, Tp - T)).contiguous()
-    end = _end_states(code, endstate, B, words.device)
     walk = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
-    bits = unpack_bit_words(walk(code, w, end, T), T)
+    return walk_bytes(code, walk, w, T, num_data_bits, endstate)
+
+
+def walk_bits(code: CodeSpec, walk, dec: torch.Tensor, T: int, endstate, *extra) -> torch.Tensor:
+    """Walk outputs ``[B, T]`` uint8 of the traceback kernel ``walk``
+    (``kernels.chainback_tb`` or ``inplace.chainback_inplace``, whose
+    ``extra`` is the window's ``t0``) over ``dec [Tp, W, B]`` from
+    ``endstate`` (an int or a device tensor)."""
+    end = _end_states(code, endstate, dec.shape[2], dec.device)
+    return unpack_bit_words(walk(code, dec, end, T, *extra), T)
+
+
+def walk_bytes(code: CodeSpec, walk, dec: torch.Tensor, T: int, num_data_bits: int,
+               endstate) -> torch.Tensor:
+    """Decoded bytes ``[B, num_data_bits // 8]`` of a whole frame's walk: the
+    first K-1 outputs (the initial state's bits) dropped."""
+    bits = walk_bits(code, walk, dec, T, endstate)
     return bits_to_bytes(bits[:, code.K - 1 : code.K - 1 + num_data_bits])
 
 
@@ -254,9 +278,8 @@ def _native_phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
         return m, (dec, T, B), torch.zeros((B,), dtype=torch.int32, device=m.device)
 
     def _cb_impl(words_native, endstate):
-        dec, T, B = words_native
-        bits = unpack_bit_words(walk(code, dec, _end_states(code, endstate, B, dec.device), T), T)
-        return bits_to_bytes(bits[:, code.K - 1 : code.K - 1 + num_data_bits])
+        dec, T, _ = words_native
+        return walk_bytes(code, walk, dec, T, num_data_bits, endstate)
 
     def chainback_fn(words_native):
         return _cb_impl(words_native, 0)

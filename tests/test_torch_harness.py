@@ -19,6 +19,7 @@ import ka9q_viterbi_comparison_tpu_torch as P
 from ka9q_viterbi_comparison_tpu.harness import bench as jbench
 from ka9q_viterbi_comparison_tpu_torch.harness import bench, profiling, runner
 from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_frames
+from ka9q_viterbi_comparison_tpu_torch.utils import native
 from test_reference_script_compat import REF_SCRIPTS as REFERENCE_SCRIPTS  # where it is mounted
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,10 +44,12 @@ def bench_json(tmp_path_factory):
 
 def test_runner_emits_reference_schema(bench_json):
     rows = json.loads(bench_json.read_text())
-    # viterbi27: three numeric specs, viterbi49 (no ka9q column): two; two backends each
+    # viterbi27: three numeric specs, viterbi49 (no ka9q column): two; two device
+    # backends each, and the host decoder where g++ is present
+    host = ["cpu_native"] if native.available() else []
     assert [r["name"] for r in rows] == [
-        "gpu_cuda", "gpu_torch", "gpu_cuda_s16", "gpu_torch_s16", "gpu_cuda_ob", "gpu_torch_ob",
-        "gpu_cuda", "gpu_torch", "gpu_cuda_s16", "gpu_torch_s16"]
+        f"{name}{tag}" for tags in (("", "_s16", "_ob"), ("", "_s16")) for tag in tags
+        for name in ["gpu_cuda", "gpu_torch"] + host]
     for t in rows:
         assert set(t.keys()) == SCHEMA_KEYS
         assert (t["K"], t["R"]) in ((7, 2), (9, 4))
@@ -78,7 +81,9 @@ def test_default_batches_and_ka9q_configs_name_the_jax_rows():
 
     assert runner.DEFAULT_BATCH == jrunner.DEFAULT_BATCH
     assert runner.KA9Q_CONFIGS == jrunner.KA9Q_CONFIGS
-    assert runner.backends_for(P.VITERBI27) == ["cuda", "torch"]
+    assert runner.NATIVE_BATCH == jrunner.NATIVE_BATCH
+    assert runner.backends_for(P.VITERBI27) == ["cuda", "torch"] + (
+        ["native"] if native.available() else [])
 
 
 def test_tabulate_script_parses_the_ports_json(bench_json):
@@ -105,7 +110,7 @@ def test_runner_rejects_unknown_code_and_backend(tmp_path):
     with pytest.raises(SystemExit):
         runner.main(["-o", str(tmp_path / "x.json"), "--backends", "pallas", "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown backend"):
-        bench._phases_for_backend(P.VITERBI27, P.soft8_spec(2), "native", 8, 2, "cpu")
+        bench._phases_for_backend(P.VITERBI27, P.soft8_spec(2), "jnp", 8, 2, "cpu")
 
 
 def _frames(code, numeric, B, n_bytes, seed):

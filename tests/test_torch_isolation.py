@@ -10,6 +10,8 @@ import pytest
 import torch
 
 import ka9q_viterbi_comparison_tpu_torch as P
+from ka9q_viterbi_comparison_tpu_torch.harness import ber
+from ka9q_viterbi_comparison_tpu_torch.ops import quantized
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "ka9q_viterbi_comparison_tpu_torch"
@@ -64,15 +66,19 @@ def test_default_device_is_the_card():
         P.ViterbiDecoder(code, numeric, batch=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.decode_symbols(code, numeric, torch.zeros((2, 28), dtype=torch.int32), 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.StreamingDecoder(code, numeric, batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ber.measure_ber(code, P.soft16_spec(2), 3.0, frame_bytes=2, batch=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quantized.decode_symbols_ka9q(code, torch.zeros((2, 28), dtype=torch.uint8), 8)
     P.ViterbiDecoder(code, numeric, batch=2, device="cpu")  # asking for the CPU works
+    P.StreamingDecoder(code, numeric, batch=2, device="cpu")
 
 
 def test_exports_mirror_jax_package():
-    expected = {"CodeSpec", "NumericSpec", "ViterbiDecoder", "decode_frames", "decode_fn",
-                "decode_symbols", "VITERBI27", "VITERBI47", "VITERBI29", "VITERBI49",
-                "VITERBI615", "VITERBI224", "STANDARD_CODES", "BENCH_FRAME_BYTES",
-                "ka9q_offset_binary_spec", "soft16_spec", "soft8_spec", "hard8_spec",
-                "__version__"}
-    assert set(P.__all__) == expected
+    import ka9q_viterbi_comparison_tpu as J
+
+    assert P.__all__ == J.__all__
     for name in P.__all__:
         assert hasattr(P, name)
