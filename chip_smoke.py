@@ -10,11 +10,11 @@ tap both register ends, chained halves; the state-order ACS through both of
 its entry points at K=2..10, R=1..6, batches of 1, 33 and 130;
 ``acs_update_large`` in each form of its plan: on chip at Cassini, octets at
 ICE, streaming at K=10 R=7, with its launcher calls counted; the large-K
-launch plans from entry metrics at the int32 limit), then drives eight paths --
+launch plans from entry metrics at the int32 limit), then drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
-``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder`` and the BER
-harness -- each with the launch counts zeroed just before it and read just
-after:
+``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
+harness and the sharded decodes of ``parallel`` -- each with the launch
+counts zeroed just before it and read just after:
 
 * VITERBI27 (K=7, r=1/2) soft8, 1024-byte frames: B=512 (the in-place pair)
   and B=64 (the state-order pair);
@@ -51,7 +51,19 @@ after:
   ka9q- and SPIRAL-exact u8 replicas at K=7 and K=9, B=512, 1024-byte AWGN
   frames on the card, their first 8 frames byte-identical to the CPU's; the
   runner's ``cpu_native`` rows (the host C++ decoder) for viterbi27 and
-  viterbi615.
+  viterbi615;
+* the multi-device paths on in-process meshes on this one card
+  (``parallel.Mesh``): frame DP at VITERBI27 soft8, 1024-byte frames, B=512
+  and B=64 on frame=4 (the in-place and the state-order pair a shard); time
+  blocks of the same frames (padded to 8200 steps) at B=64 on (frame=2,
+  time=4) and on time=8, overlap 56 (the in-place pair); the state-sharded
+  ICE decode, B=8 8-byte frames on state=4; the state x time ICE decode of one
+  64-byte frame on (state=4, time=2), overlap 96 (PyTorch ops: no kernel).
+  Bytes equal the data and the unsharded decode, noisy time-block bits the
+  CPU's; each case prints its time, its collectives counted by
+  ``harness.comms.collective_trace`` held against the analytic model, and
+  its launches.  One card runs every shard, so the times are the shard
+  plumbing's cost, not scaling.
 
 Then it times the kernels and the decoders' phases with CUDA events, and
 counts the launches a call of the state-order and large-K updates
@@ -92,11 +104,13 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     BENCH_FRAME_BYTES,
     StreamingDecoder,
     ViterbiDecoder,
+    decode_symbols,
     ka9q_offset_binary_spec,
     soft8_spec,
     soft16_spec,
 )
-from ka9q_viterbi_comparison_tpu_torch.harness import ber, probe_tb, runner  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch import parallel  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.harness import ber, comms, probe_tb, runner  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops import channel, quantized, radix_planes  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
@@ -1217,8 +1231,204 @@ def drive_awgn(tag, rng):
     return launches
 
 
+def parallel_case(tag, label, fn, kernels_of_case, model_check):
+    """One sharded decode of path 9: the launch counts zeroed just before,
+    its collectives counted (``harness.comms.collective_trace``) and timed
+    with CUDA events, the counts read just after and held against the
+    analytic model by ``model_check(report)``.  Returns (output, launches)."""
+    out = []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    report = comms.collective_trace(lambda: out.append(fn()))
+    end.record()
+    end.synchronize()
+    launches = dict(_build.LAUNCHES)
+    counted = {c.prim: 0 for c in report.collectives}
+    for c in report.collectives:
+        counted[c.prim] += c.count
+    ok, said = model_check(report)
+    print(f"[{tag}] parallel {label}: {start.elapsed_time(end):.4f} ms on one card (the shard "
+          f"plumbing's cost, not scaling: every shard runs on this card); collectives "
+          f"{json.dumps(counted)}, {report.total_wire_bytes()} wire bytes; {said}: {ok}; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if not ok:
+        raise SystemExit(f"FAIL: parallel {label}: the counted collectives differ from the model")
+    for name in kernels_of_case:
+        if launches[name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was not launched on the parallel {label} path")
+    return out[0], launches
+
+
+def drive_parallel(tag, rng):
+    """Path 9: the multi-device paths on in-process meshes on this one card
+    (``parallel.Mesh``: the shards are the leading dimension of each
+    tensor, their collectives index and reduction ops).  Frame DP (K=7,
+    1024-byte frames, B=512 and B=64 on frame=4: 128 frames a shard on the
+    in-place pair, 16 on the state-order pair), time blocks (K=7, 1024-byte
+    frames padded to 8200 steps, B=64 on (frame=2, time=4) and on time=8,
+    overlap 56: the shards fold into one in-place call), the state-sharded
+    ICE decode (8-byte frames, B=8 on state=4) and the composed state x time
+    ICE decode (one 64-byte frame, T = 535 padded to 536, on (state=4,
+    time=2), overlap 96).  Noiseless bytes must equal the data and the
+    unsharded decode; noisy frame-DP and state-sharded bytes the unsharded
+    decode; noisy time-block bits the CPU's run of the same sharded function
+    on 8 of the frames."""
+    soft8 = soft8_spec(2)
+    nbits = FRAME_BYTES * 8
+    T = CODE.transmit_bits(FRAME_BYTES)
+    total = {k: 0 for k in _build.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    def zero_collectives(rep):
+        return rep.collectives == [], (f"no collective (frame_model: "
+                                       f"{comms.frame_model(4, 1)['total_wire_bytes']} wire bytes)")
+
+    for B, key, pair in ((B_INPLACE, "acs_update_inplace", ("acs_update_inplace", "chainback_inplace")),
+                         (B_TB, "acs_update_tb", ("acs_update_tb", "chainback_tb"))):
+        data, clean = noisy_symbols(soft8, B, rng, 0, CODE, FRAME_BYTES)
+        kept = COMPARED.get((key, None))
+        if kept is not None and tuple(kept[0][3].shape) == (T, 2, B):
+            noisy, where = kept[0][3].permute(2, 0, 1), "the compared shape's symbols"
+        else:
+            noisy, where = noisy_symbols(soft8, B, rng, 3, CODE, FRAME_BYTES)[1], "new symbols"
+        mesh = parallel.Mesh({"frame": 4}, "cuda")
+        got, launches = parallel_case(
+            tag, f"frame DP K=7 B={B} on frame=4 ({B // 4} a shard)",
+            lambda: parallel.frame_sharded_decode(CODE, soft8, clean.reshape(B, -1), nbits, mesh),
+            pair, zero_collectives)
+        add(launches)
+        got_noisy, launches = parallel_case(
+            tag, f"frame DP K=7 B={B} noisy ({where})",
+            lambda: parallel.frame_sharded_decode(CODE, soft8, noisy.reshape(B, -1), nbits, mesh),
+            pair, zero_collectives)
+        add(launches)
+        want = unsharded_decode(CODE, soft8, noisy, nbits)
+        errors, same = count_bit_errors(got, data), bool(torch.equal(got_noisy, want))
+        print(f"[{tag}] parallel frame DP B={B}: bit errors {errors}, noisy equal to the "
+              f"unsharded decode {same}")
+        if errors or not same:
+            raise SystemExit(f"FAIL: parallel frame DP at B={B}")
+
+    # Time blocks: erasure symbols pad 8198 steps to 8200.
+    B, OL = B_TB, 56
+    pad = (-T) % 8
+    data, clean = noisy_symbols(soft8, B, rng, 0, CODE, FRAME_BYTES)
+    _, noisy = noisy_symbols(soft8, B, rng, 3, CODE, FRAME_BYTES)
+    clean, noisy = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (clean, noisy))
+    for axes in ({"frame": 2, "time": 4}, {"time": 8}):
+        mesh = parallel.Mesh(axes, "cuda")
+        b = B // axes.get("frame", 1)
+        Tp = T + pad
+
+        def tb_check(rep, b=b, n_time=axes["time"]):
+            model = comms.timeblock_model(CODE, n_time, b, Tp, overlap=OL)
+            perms = [c for c in rep.collectives if c.prim == "ppermute"]
+            ok = (rep.total_count() == rep.total_count("ppermute") == model["halo_ppermutes"]
+                  and all(c.payload_bytes == model["halo_payload_bytes"]
+                          and c.pairs == n_time - 1 for c in perms))
+            return ok, (f"timeblock_model: {model['halo_ppermutes']} halo ppermutes of "
+                        f"{model['halo_payload_bytes']} bytes, predicted efficiency "
+                        f"{model['predicted_efficiency']:.4f} at the H100's figures")
+
+        route = ("acs_update_inplace", "chainback_inplace")
+        got, launches = parallel_case(
+            tag, f"time blocks K=7 B={B} on {axes}, overlap {OL}",
+            lambda: parallel.time_block_decode(CODE, soft8, clean, nbits, mesh, overlap=OL),
+            route, tb_check)
+        add(launches)
+        got_noisy, launches = parallel_case(
+            tag, f"time blocks K=7 B={B} noisy on {axes}",
+            lambda: parallel.time_block_decode_bits(CODE, soft8, noisy, mesh, overlap=OL),
+            route, tb_check)
+        add(launches)
+        cpu = parallel.time_block_decode_bits(CODE, soft8, noisy[:8].cpu(),
+                                              parallel.Mesh(axes, "cpu"), overlap=OL)
+        errors = count_bit_errors(got, data)
+        same_unsharded = bool(torch.equal(got, unsharded_decode(CODE, soft8, clean[:, :T], nbits)))
+        same_cpu = bool(torch.equal(got_noisy[:8].cpu(), cpu))
+        print(f"[{tag}] parallel time blocks on {axes}: bit errors {errors}, equal to the "
+              f"unsharded decode {same_unsharded}; noisy bits of 8 frames equal to the CPU's "
+              f"{same_cpu}")
+        if errors or not (same_unsharded and same_cpu):
+            raise SystemExit(f"FAIL: parallel time blocks on {axes}")
+
+    # State sharding at ICE: 8-byte frames, B=8 over four shards.
+    ice = soft8_spec(2)
+    T_ice = VITERBI224.transmit_bits(ICE_BYTES)
+    data, clean = noisy_symbols(ice, B_ICE, rng, 0, VITERBI224, ICE_BYTES)
+    _, noisy = noisy_symbols(ice, B_ICE, rng, 3, VITERBI224, ICE_BYTES)
+    mesh = parallel.Mesh({"state": 4}, "cuda")
+
+    def sw_check(rep):
+        model = comms.statewise_model(VITERBI224, 4, B_ICE, T_ice)
+        perms = [c for c in rep.collectives if c.prim == "ppermute"]
+        ok = (rep.total_count("ppermute") == model["update_ppermutes"]
+              and sum(c.wire_bytes for c in perms) == model["step_wire_bytes"]
+              and rep.total_count("psum") == model["traceback_psums"]
+              and rep.total_count() == 5 * T_ice)
+        return ok, (f"statewise_model: {model['update_ppermutes']} ppermutes, "
+                    f"{model['step_wire_bytes']} wire bytes a step, {model['traceback_psums']} "
+                    f"psums, predicted step efficiency "
+                    f"{model['predicted_step_efficiency']:.4f} at the H100's figures")
+
+    outs = []
+    for sym, kind in ((clean, "noiseless"), (noisy, "noisy")):
+        got, launches = parallel_case(
+            tag, f"state-sharded ICE B={B_ICE} {kind} on state=4",
+            lambda sym=sym: parallel.state_sharded_decode(VITERBI224, ice, sym, ICE_BYTES * 8, mesh),
+            (), sw_check)
+        add(launches)
+        outs.append(got)
+    want = unsharded_decode(VITERBI224, ice, noisy, ICE_BYTES * 8)
+    errors, same = count_bit_errors(outs[0], data), bool(torch.equal(outs[1], want))
+    print(f"[{tag}] parallel state-sharded ICE: bit errors {errors}, noisy equal to the unsharded "
+          f"decode {same}")
+    if errors or not same:
+        raise SystemExit("FAIL: parallel state-sharded ICE")
+
+    # State x time at ICE: one 64-byte frame (T = 535, padded to 536).
+    st_bytes, OL = 64, 96
+    T_st = VITERBI224.transmit_bits(st_bytes)
+    data, clean = noisy_symbols(ice, 1, rng, 0, VITERBI224, st_bytes)
+    mesh = parallel.Mesh({"state": 4, "time": 2}, "cuda")
+
+    def st_check(rep):
+        model = comms.state_time_model(VITERBI224, 4, 2, 1, T_st + 1, overlap=OL)
+        sperms = [c for c in rep.collectives if c.prim == "ppermute" and c.axes == ("state",)]
+        ok = (sum(c.count for c in sperms) == model["update_ppermutes_per_device_stream"]
+              and sum(c.wire_bytes for c in sperms) == model["step_wire_bytes"]
+              and rep.total_count("psum") == model["traceback_psums"])
+        return ok, (f"state_time_model: {model['update_ppermutes_per_device_stream']} state "
+                    f"ppermutes, {model['traceback_psums']} psums, predicted efficiency "
+                    f"{model['predicted_efficiency']:.4f} at the H100's figures")
+
+    got, launches = parallel_case(
+        tag, f"state x time ICE {st_bytes}-byte frame on (state=4, time=2), overlap {OL}",
+        lambda: parallel.state_time_decode(VITERBI224, ice, clean, st_bytes * 8, mesh, overlap=OL),
+        (), st_check)
+    add(launches)
+    errors = count_bit_errors(got, data)
+    same = bool(torch.equal(got, unsharded_decode(VITERBI224, ice, clean, st_bytes * 8)))
+    print(f"[{tag}] parallel state x time ICE: bit errors {errors}, equal to the unsharded "
+          f"decode {same}")
+    if errors or not same:
+        raise SystemExit("FAIL: parallel state x time ICE")
+    torch.cuda.empty_cache()
+    return total
+
+
+def unsharded_decode(code, numeric, sym, nbits):
+    """The unsharded decode of the same frames on the kernels."""
+    return decode_symbols(code, numeric, sym.reshape(sym.shape[0], -1), nbits, backend="cuda")
+
+
 def phase_decode(tag, rng):
-    """The eight paths; returns the launches of each kernel summed over the
+    """The nine paths; returns the launches of each kernel summed over the
     paths."""
     paths = [
         drive_path(tag, "K=7", CODE, soft8_spec(2), FRAME_BYTES, [(B_INPLACE, None), (B_TB, None)],
@@ -1241,6 +1451,7 @@ def phase_decode(tag, rng):
     for code, B, n, pushes, kernels_of_path in STREAMS:
         paths.append(drive_stream(tag, rng, code, B, n, pushes, kernels_of_path))
     paths.append(drive_awgn(tag, rng))
+    paths.append(drive_parallel(tag, rng))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
     zero = [name for name, n in launches.items() if n == 0]
     if zero:
@@ -1707,7 +1918,7 @@ def main() -> int:
     phase_kernels_inplace_forms(tag, rng, errs)
     done("in-place forms comparisons")
     launches = phase_decode(tag, rng)
-    done("the eight paths")
+    done("the nine paths")
     rows = phase_timing(tag, rng)
     done("K=7 and K=9 timing")
     phase_timing_large(tag, rng, rows)
