@@ -3,14 +3,17 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
-together), holds each of the ten kernels against its plain PyTorch version on
-the card (the in-place pair and the tracebacks in every form: K=3..15,
+together), holds each of the eleven kernels against its plain PyTorch version
+on the card (the in-place pair and the tracebacks in every form: K=3..15,
 R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
 tap both register ends, chained halves; the state-order ACS through both of
 its entry points at K=2..10, R=1..6, batches of 1, 33 and 130;
 ``acs_update_large`` in each form of its plan: on chip at Cassini, octets at
 ICE, streaming at K=10 R=7, with its launcher calls counted; the large-K
-launch plans from entry metrics at the int32 limit), then drives nine paths --
+launch plans from entry metrics at the int32 limit; the two K > 15 walks,
+the table walk on the f8 and f4 tables and ``chainback_tb`` on the words that
+the depth-4 kernels' comparisons at ICE B=8 wrote, and at K=16-17), then
+drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
 harness and the sharded decodes of ``parallel`` -- each with the launch
@@ -26,19 +29,31 @@ counts zeroed just before it and read just after:
   remainder as one 7-step launch) on whole frames, and in blocks of 41 and
   46 steps, whose remainders of 1 and 2 steps run on the streaming step and
   pair kernels with their entry shift from the last octet launch (no whole
-  ICE call reaches them: the blocks are there to keep them on a path); the
-  portable walk;
+  ICE call reaches them: the blocks are there to keep them on a path);
+  ``chainback_tb`` over the batch-major words where they lie;
 * the same ICE frames through ``phase_fns``: the update that returns the
   byte-packed f8 walk table (the octet kernel in fields mode, ten octets,
-  after the 7 lead steps as one 7-step launch) and the 8-steps-a-fetch table
-  walk; and, asked for 7 of the 8 bytes, the f4 route (a 3-step lead);
+  after the 7 lead steps as one 7-step launch) and the table walk kernel, 8
+  steps a fetch; and, asked for 7 of the 8 bytes, the f4 route (a 3-step
+  lead);
 * VITERBI27 soft8, 1024-byte frames at B=1024 with the in-place route off
   (``KA9Q_TORCH_INPLACE=0`` for this path only): the depth-2 state-order
   kernel ``acs_update_tb2`` and ``chainback_tb``, through the decoder and
   through ``phase_fns`` with its chains of three links;
 * the benchmark runner (``harness.runner.run_matrix``, ``backends=["cuda"]``):
   all six codes at its default batches and the reference's frame sizes,
-  every numeric spec, 16 rows of reference-schema JSON with bit error rate 0;
+  every numeric spec, 16 rows of reference-schema JSON held to the hard
+  rules of ``harness.check_results`` (no sample on the 1 us floor, BER 0,
+  the HBM roofline, K=9 chainback at most 1.2x K=7's, and every cell beats
+  its reference column).  Two of its verdicts are printed, not enforced:
+  the std rule (std/mean <= 15 %), since these 0.15 s windows of three or
+  more samples are too short for it and the checked-in matrix
+  (``data/benchmark_torch.json``) is what must pass it; and the roofline at
+  K = 10-15, where the gate's byte model (the JAX gate's: all W words of a
+  step, 2048 B a decoded bit at K=15) counts words that the port's walk
+  does not read (31 candidate words a round of five steps), so that it
+  refuses the Cassini traceback as measured (an open question of
+  ``ROADMAP.md``);
 * streams through ``StreamingDecoder(backend="cuda")``: VITERBI27 soft8 at
   B=512 (the in-place pair) and B=64 (the state-order pair) in 16 pushes of
   2046 steps, Cassini soft8 at B=256 in 4 pushes of 2044 steps: the released
@@ -65,7 +80,10 @@ counts zeroed just before it and read just after:
   its launches.  One card runs every shard, so the times are the shard
   plumbing's cost, not scaling.
 
-Then it times the kernels and the decoders' phases with CUDA events, and
+Then it times the kernels and the decoders' phases with CUDA events (the
+two K > 15 walks beside their latency bound: dependent fetches a frame times
+the card's dependent-load latency, measured by ``harness.probe_walk``, in
+the kernels line as ``latency_bound_ms``), and
 counts the launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
 chip) and the device operations of a steady stream push from a profiler
@@ -110,7 +128,14 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     soft16_spec,
 )
 from ka9q_viterbi_comparison_tpu_torch import parallel  # noqa: E402
-from ka9q_viterbi_comparison_tpu_torch.harness import ber, comms, probe_tb, runner  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.harness import (  # noqa: E402
+    ber,
+    check_results,
+    comms,
+    probe_tb,
+    probe_walk,
+    runner,
+)
 from ka9q_viterbi_comparison_tpu_torch.ops import channel, quantized, radix_planes  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
@@ -121,6 +146,7 @@ from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     large_k,
     large_k2,
     large_k4,
+    walk,
 )
 from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_bits, encode_frames  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.utils.bits import bits_to_bytes, count_bit_errors  # noqa: E402
@@ -155,6 +181,7 @@ SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large.cu" f
                ("acs_update_large2", "acs_update_large")})
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large4.cu" for name in
                ("acs_update_large4", "acs_update_large4_fields", "acs_update_large4_fields8")})
+SOURCE["chainback_planes"] = "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_walk.cu"
 REPLACES = {
     "acs_update_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:227",
     "chainback_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:361",
@@ -166,6 +193,8 @@ REPLACES = {
     "acs_update_large4": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:358",
     "acs_update_large4_fields": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:512",
     "acs_update_large4_fields8": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:669",
+    # The table walk replaces no pl.pallas_call: the JAX package runs it as jnp.
+    "chainback_planes": "ka9q_viterbi_comparison_tpu/ops/radix_planes.py:299",
 }
 K10R7_POLYS = (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621)  # blocks too small on chip
 ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
@@ -562,6 +591,8 @@ def phase_kernels_quad(tag, rng, errs):
                                    keep=(name, None) if timed else None)
             note(name, e)
             out[name] = got[0]
+            if timed:
+                WALK_INPUTS[name] = got[1]
             del got
             torch.cuda.empty_cache()
         return out
@@ -618,6 +649,74 @@ def phase_kernels_quad(tag, rng, errs):
     torch.cuda.empty_cache()
     print(f"[{tag}] depth-4 kernels (words, f4, f8) and G_2 planes vs plain versions: "
           f"all bit-identical")
+
+
+# The depth-4 kernels' outputs at the ICE paths' shape (B=8, T=87, soft8),
+# kept by their comparisons for the walks': the batch-major words and the f4
+# and f8 tables.
+WALK_INPUTS: dict[str, torch.Tensor] = {}
+ICE_ANCHOR = 23  # K-1: the table walk stops at the first kept data bit
+K16, K17 = probe_walk.K16, probe_walk.K17
+
+
+def phase_kernels_walk(tag, rng, errs):
+    """The two K > 15 walks against their plain versions.  The table walk on
+    the f8 and f4 tables that the ICE comparisons of the fields forms wrote
+    (anchor 23, as ``phase_fns`` walks them; bytes, bits and end state, from
+    an int32 end state a frame and from a uint8 0-d one, the form a timing
+    chain passes on), and on tables of random K=17 words whose plans end in
+    width 4, 2 and 1 windows; ``chainback_tb`` (the words walk) on the ICE
+    comparison's batch-major words where they lie and on random K=16 words
+    in both layouts.  The ICE calls' inputs and plain times are kept for the timing
+    rows: no new whole-frame plain run."""
+    ice, B = VITERBI224, B_ICE
+    nbits = ICE_BYTES * 8
+
+    def note(name, label, got, want):
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        e = max(max_abs_err(a.to(torch.int32), b.to(torch.int32)) for a, b in zip(got, want))
+        print(f"{name} {label}: max_abs_err {e}")
+        errs[name] = max(errs[name], check(f"{name} {label}", e))
+
+    end = torch.from_numpy(rng.integers(0, ice.num_states, size=B).astype(np.int32)).cuda()
+    end_u8 = torch.tensor(201, dtype=torch.uint8, device="cuda")
+    for key, form, lead, width in ((None, "acs_update_large4_fields8", ICE_LEAD8, 8),
+                                   ("f4", "acs_update_large4_fields", ICE_LEAD4, 4)):
+        table = WALK_INPUTS.pop(form)
+        tabs = {f"f{width}": table[(ICE_ANCHOR - lead) // width:]}
+        label = f"ice f{width} B={B} anchor {ICE_ANCHOR}"
+        args = (ice, None, tabs, nbits, end, ICE_ANCHOR)
+        got = walk.chainback_planes(*args)
+        note("chainback_planes", label, got,
+             timed_plain(walk.chainback_planes_ref, args, {}, ("chainback_planes", key)))
+        note("chainback_planes", f"{label} bits and end state",
+             walk.chainback_plane_bits(*args), radix_planes.chainback_plane_bits(*args))
+        args = (ice, None, tabs, nbits, end_u8, ICE_ANCHOR)
+        note("chainback_planes", f"{label} uint8 end state", walk.chainback_planes(*args),
+             walk.chainback_planes_ref(*args))
+        del table
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for T, anchor, width in ((83, 16, 8), (45, 16, 8), (83, 0, 4), (86, 0, 8)):
+        w_tm = probe_walk.random_words(K17, T, 5, g)
+        tabs = radix_planes.build_plane_tables(K17, w_tm, anchor, None, width)
+        nb = (T - 16) // 8 * 8
+        e5 = end[:5].contiguous() & (K17.num_states - 1)
+        note("chainback_planes", f"k17 B=5 T={T} anchor {anchor} width {width}",
+             walk.chainback_plane_bits(K17, w_tm, tabs, nb, e5, anchor),
+             radix_planes.chainback_plane_bits(K17, w_tm, tabs, nb, e5, anchor))
+    words = WALK_INPUTS.pop("acs_update_large4")  # [B, T, W]
+    T = words.shape[1]
+    args = (ice, words.permute(1, 2, 0), end.reshape(1, B), T)
+    note("chainback_tb", f"ice B={B} T={T} (batch-major words in place)",
+         kernels.chainback_tb(*args),
+         timed_plain(kernels.chainback_tb_ref, args, {}, ("chainback_tb", "ice")))
+    w16 = probe_walk.random_words(K16, 50, 3, g).transpose(0, 1).contiguous()  # [B, T, W]
+    e16 = end[:3].reshape(1, 3) & (K16.num_states - 1)
+    for dec in (w16.permute(1, 2, 0), w16.permute(1, 2, 0).contiguous()):
+        note("chainback_tb", f"k16 B=3 T=50 {'contiguous' if dec.is_contiguous() else 'view'}",
+             kernels.chainback_tb(K16, dec, e16, 50), kernels.chainback_tb_ref(K16, dec, e16, 50))
+    torch.cuda.empty_cache()
+    print(f"[{tag}] the K > 15 walks vs plain versions: all bit-identical")
 
 
 def phase_kernels_inplace_forms(tag, rng, errs):
@@ -909,7 +1008,7 @@ def drive_runner(tag):
         for k, v in launches.items():
             total[k] += v
         print(f"[{tag}] runner {code.name} launches: {json.dumps(launches)}")
-        want = (("acs_update_large4_fields8",) if code.K > 15 else
+        want = (("acs_update_large4_fields8", "chainback_planes") if code.K > 15 else
                 ("acs_update_inplace", "chainback_inplace"))
         if any(k not in launches for k in want) or (code.K <= 15 and len(launches) != 2):
             raise SystemExit(f"FAIL: runner {code.name} was served by {launches}, expected {want}")
@@ -932,7 +1031,36 @@ def drive_runner(tag):
               f"{msym:.6g} Msym/s ({np.mean(r['update_ns']) / 1e6:.4f} ms), chainback "
               f"{mbit:.6g} Mbit/s ({np.mean(r['chainback_ns']) / 1e6:.4f} ms), init "
               f"{np.mean(r['init_ns']) / 1e3:.2f} us, {r['total_samples']} samples, bit error rate 0")
+    gate_runner_rows(tag, rows)
     return total
+
+
+def gate_runner_rows(tag, rows):
+    """The gate's hard rules on path 6's rows (floor, BER, roofline, K=9 over
+    K=7, every cell above its reference column): a violation fails the run.
+    Printed, not enforced: the std rule, since a 0.15 s window of three or
+    more samples is too short for it (the checked-in matrix must pass it);
+    and the roofline at K = 10-15, whose byte model (the JAX gate's, 2048 B a
+    decoded bit at K=15) counts words the port's walk does not read, and
+    refuses the Cassini traceback as measured (open in ``ROADMAP.md``)."""
+    hard = check_results.check_rows(rows, hard_only=True)
+    soft = [x for x in check_results.check_rows(rows) if x not in hard]
+    mid_k = tuple(f"{r['name']} K={r['K']} R={r['R']}:" for r in rows if 10 <= r["K"] <= 15)
+    roof = [x for x in hard if x.startswith(mid_k) and x.endswith("HBM roofline")]
+    hard = [x for x in hard if x not in roof]
+    for e in check_results.vs_baseline_rows(rows):
+        print(f"[{tag}] runner {e['name']} K={e['K']} R={e['R']} vs the reference: " + ", ".join(
+            f"{ph} {e[ph]['ratio']:.2f}x {e[ph]['column']}" for ph in ("update", "chainback")
+            if ph in e))
+    for x in soft:
+        print(f"[{tag}] runner std rule (printed, not enforced on 0.15 s windows): {x}")
+    for x in roof:
+        print(f"[{tag}] runner roofline at K = 10-15 (printed, not enforced: the JAX byte "
+              f"model): {x}")
+    if hard:
+        raise SystemExit("FAIL: the runner's rows break the gate's hard rules:\n" + "\n".join(hard))
+    print(f"[{tag}] runner rows: the gate's hard rules hold on all {len(rows)} rows "
+          f"({len(soft)} std notes, {len(roof)} roofline notes at K = 10-15)")
 
 
 def drive_phase_fns(tag, rng):
@@ -964,7 +1092,8 @@ def drive_phase_fns(tag, rng):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[{tag}] ICE phase_fns path launches: {json.dumps(launches)}")
-    for name in ("acs_update_large4_fields8", "acs_update_large4_fields", "acs_update_large4"):
+    for name in ("acs_update_large4_fields8", "acs_update_large4_fields", "acs_update_large4",
+                 "chainback_planes"):
         if launches[name] == 0:
             raise SystemExit(f"FAIL: kernel {name} was not launched on the ICE phase_fns path")
 
@@ -1444,7 +1573,8 @@ def phase_decode(tag, rng):
     # streaming step and pair kernels, which a whole ICE frame does not reach.
     paths.append(drive_path(tag, "ICE", VITERBI224, soft8_spec(2), ICE_BYTES,
                             [(B_ICE, None), (B_ICE, (41, 46))], rng,
-                            ("acs_update_large4", "acs_update_large2", "acs_update_large")))
+                            ("acs_update_large4", "acs_update_large2", "acs_update_large",
+                             "chainback_tb")))
     paths.append(drive_phase_fns(tag, rng))
     paths.append(drive_tb2_path(tag, rng))
     paths.append(drive_runner(tag))
@@ -1466,12 +1596,12 @@ def compared_args(name, key=None):
 
 
 def kernel_row(tag, rows, name, fn, ref, args, shape, bnd, iters, key=None, kwargs=None,
-               steps=None):
-    """Time the kernel on ``args``.  Where these are the inputs of a
-    comparison (``compared_args``), the plain version's time is that run's;
-    else the plain version runs here, once."""
+               steps=None, timer=timed_ms):
+    """Time the kernel on ``args`` (with ``timer``).  Where these are the
+    inputs of a comparison (``compared_args``), the plain version's time is
+    that run's; else the plain version runs here, once."""
     kwargs = kwargs or {}
-    ms = timed_ms(lambda: fn(*args, **kwargs), iters)
+    ms = timer(lambda: fn(*args, **kwargs), iters)
     kept = COMPARED.pop((name, key), None)
     if kept is not None and kept[0] is args:
         plain_ms = kept[1]
@@ -1676,7 +1806,7 @@ def phase_timing_quad(tag, rng, rows):
               f"a pass {passes * metric_pass_ms(B, ice):.4f} ms")
     del m0
     torch.cuda.empty_cache()
-    decoder_phases(tag, ice, s8, B, ICE_BYTES, rng, "ICE (depth-4 words, portable walk)",
+    decoder_phases(tag, ice, s8, B, ICE_BYTES, rng, "ICE (depth-4 words, chainback_tb)",
                    ("ksym/s", 1e3))
     torch.cuda.empty_cache()
 
@@ -1703,6 +1833,57 @@ def phase_timing_quad(tag, rng, rows):
     return quads
 
 
+def walk_bound_ms(B, fetches, nbits) -> tuple[float, str]:
+    """Least time of the table walk by bytes and operations: one word a
+    window and frame (what the data needs), the end state, the kept bytes;
+    per window some 8 operations (index, fetch, extract, state update), per
+    kept bit 4 (select, shift, or, store)."""
+    return bound(4 * B * (fetches + 1) + B * nbits // 8, B * (8 * fetches + 4 * nbits))
+
+
+def phase_timing_walk(tag, rows):
+    """The two K > 15 walks (the table walk, and ``chainback_tb`` over the
+    ICE words) at the ICE paths' shape (B=8, T=87) on their comparisons'
+    inputs, beside the bound by bytes and operations (the kernels line's
+    ``bound_ms``) and the latency bound (its ``latency_bound_ms``): dependent
+    fetches a frame times the card's dependent-load latency
+    (``probe_walk.load_latency_ns``: one thread chasing a random cycle
+    through 256 MiB).  A walk launch is shorter than the Python that issues
+    it, so the row's time is a replay of 50 calls captured as a CUDA graph
+    (``probe_walk.graph_ms``); the time of the same calls issued from Python
+    is printed beside it."""
+    lat = probe_walk.load_latency_ns()
+    T = VITERBI224.transmit_bits(ICE_BYTES)
+    print(f"[{tag}] dependent-load latency over 256 MiB: {lat:.2f} ns")
+    for key, width in ((None, 8), ("f4", 4)):
+        fetches = probe_walk.plan_fetches(T, ICE_ANCHOR, width)
+        args = compared_args("chainback_planes", key)
+        ms = kernel_row(tag, rows, "chainback_planes", walk.chainback_planes,
+                        walk.chainback_planes_ref, args,
+                        f"ice f{width} B={B_ICE} T={T} anchor {ICE_ANCHOR}",
+                        walk_bound_ms(B_ICE, fetches, ICE_BYTES * 8), 50, key=key,
+                        timer=probe_walk.graph_ms)
+        host = timed_ms(lambda: walk.chainback_planes(*args), 50)
+        lat_ms = fetches * lat * 1e-6
+        row = rows["chainback_planes"]
+        (row[key] if key else row)["latency_bound_ms"] = lat_ms
+        print(f"[{tag}] chainback_planes ice f{width}: latency bound {fetches} fetches x "
+              f"{lat:.2f} ns = {lat_ms:.5f} ms ({100 * lat_ms / ms:.1f}% of the kernel's time); "
+              f"issued from Python {host:.4f} ms a call")
+    rounds = probe_walk.walk_rounds(T)
+    args = compared_args("chainback_tb", "ice")
+    ms = kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
+                    args, f"ice words B={B_ICE} T={T}", chainback_bound_ms(B_ICE, T, False), 50,
+                    key="ice", steps=T, timer=probe_walk.graph_ms)
+    host = timed_ms(lambda: kernels.chainback_tb(*args), 50)
+    lat_ms = rounds * lat * 1e-6
+    rows["chainback_tb"]["ice"]["latency_bound_ms"] = lat_ms
+    print(f"[{tag}] chainback_tb ice words: latency bound {rounds} rounds of 5 steps x {lat:.2f} "
+          f"ns = {lat_ms:.5f} ms ({100 * lat_ms / ms:.1f}% of the kernel's time); one fetch a "
+          f"step would be {T * lat * 1e-6:.5f} ms; issued from Python {host:.4f} ms a call")
+    torch.cuda.empty_cache()
+
+
 # The kernels of the large-K sources; each launch reads (frame_min_kernel) or
 # reads and writes every frame's metrics once: a pass through device memory.
 PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_step_kernel",
@@ -1714,7 +1895,7 @@ PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_ste
 TB_KERNELS = ("acs_tb_warp_kernel", "acs_tb_block_kernel", "acs_tb2_block_kernel")
 # Every kernel of the port's sources.
 PORT_KERNELS = PASS_KERNELS + TB_KERNELS + ("acs_inplace_warp_kernel", "acs_inplace_block_kernel",
-                                            "chainback_kernel")
+                                            "chainback_kernel", "plane_walk_kernel")
 
 
 def trace_launches(fn, names=PASS_KERNELS) -> dict[str, int]:
@@ -1911,6 +2092,8 @@ def main() -> int:
     done("large-K and K=15 comparisons")
     phase_kernels_quad(tag, rng, errs)
     done("depth-4 comparisons")
+    phase_kernels_walk(tag, rng, errs)
+    done("walk comparisons")
     phase_kernels_tb2(tag, rng, errs)
     done("depth-2 comparisons")
     phase_kernels_tb_forms(tag, rng, errs)
@@ -1924,6 +2107,7 @@ def main() -> int:
     phase_timing_large(tag, rng, rows)
     done("Cassini timing")
     quads = phase_timing_quad(tag, rng, rows)
+    phase_timing_walk(tag, rows)
     done("ICE timing")
     phase_timing_tb2(tag, rng, rows)
     done("depth-2 and phase_fns timing")

@@ -6,7 +6,9 @@
 //                                   replace  ops/pallas/kernels.py  acs_update_tb   (_acs_kernel)
 //   acs_tb_warp_kernel (K <= 9), acs_tb2_block_kernel (K = 10..13)
 //                                   replace  ops/pallas/kernels2.py acs_update_tb2  (_acs_kernel2)
-//   chainback_kernel<ROT=false>     replaces ops/pallas/kernels.py  chainback_tb    (_chainback_kernel)
+//   chainback_kernel<ROT=false>     replaces ops/pallas/kernels.py  chainback_tb    (_chainback_kernel);
+//                                   above K=15 (to 24) it also walks the large-K updates'
+//                                   canonical words, which the JAX package walks in jnp
 //   acs_inplace_warp_kernel, acs_inplace_block_kernel
 //                                   replace  ops/pallas/inplace.py  acs_update_inplace (_acs_inplace_kernel)
 //   chainback_kernel<ROT=true>      replaces ops/pallas/inplace.py  chainback_inplace  (_chainback_inplace_kernel)
@@ -14,7 +16,7 @@
 // Layouts are those of the Pallas kernels (state-major, batch last):
 //   metrics  [S, B] int32
 //   symbols  [Tp, R, B] int32           (Tp >= t_real; steps >= t_real unread)
-//   words    [Tp, W, B] int32 (uint32 bits), W = max(1, S/32)
+//   words    [Tp, W, B] int32 (uint32 bits), W = max(1, S/32); the tracebacks read any strides
 //   etab     [S/2] int32, bit 8*x + r = transition_tables(code)[x, r, s2]
 //   endstate [B] int32
 //   bits     [NW, B] int32, bit t%32 of word t/32 = walk output at step t
@@ -913,13 +915,19 @@ acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restri
 //    T=8198 -- a
 //    round's forty-odd dependent instructions cost more than five short
 //    steps -- so the staged form walks step by step.)
-//  * Not staged (K = 10..15): W is 16..512 words a step and does not stage.
+//  * Not staged (K = 10..24; ROT only to 15): W is 16..2^18 words a step and
+//    does not stage.
 //    The position d steps back has only 2^d candidates (its unknown bits are
 //    the d decisions between).  Lane L, with L + 1 = 1 k_0 k_1 .. k_{d-1} in
 //    binary, fetches the word of the candidate that the decisions k_0.. lead
 //    to and extracts its bit; one ballot hands all 31 bits to every lane, and
 //    five steps resolve in registers (the child of node L on decision k is
 //    node 2L + 1 + k): one round trip to device memory for five steps.
+//
+// Element (t, w, b) of dec is at t*st + w*sw + b*sb (64-bit strides), so a
+// batch-major [B, T, W] or time-major [T, B, W] tensor walks where it lies:
+// at K=24 a frame holds 2^18 words a step, and a copy into [Tp, W, B] would
+// cost more than the walk.
 //
 // Considered and not built: walking every 32-step segment from all S entry
 // states in parallel and stitching the segments.  It is exact, but multiplies
@@ -964,8 +972,9 @@ __device__ __forceinline__ unsigned pick_word(const unsigned* wv, int idx) {
 // WT: the words a step (1, 2, 4, 8) of the staged form; 0: not staged.
 template <bool ROT, int WT>
 __global__ void __launch_bounds__(kCbFrames * 32)
-chainback_kernel(const int* __restrict__ dec, const int* __restrict__ endstate,
-                 int* __restrict__ bits, int K, int B, int t_real, int nw, int p0) {
+chainback_kernel(const int* __restrict__ dec, long long st, long long sw, long long sb,
+                 const int* __restrict__ endstate, int* __restrict__ bits, int K, int B,
+                 int t_real, int nw, int p0) {
   extern __shared__ unsigned stage_cb[];
   constexpr bool STAGED = WT > 0;
   const int nrot = K - 1, S = 1 << nrot, mask = S - 1, W = STAGED ? WT : S >> 5;
@@ -990,7 +999,7 @@ chainback_kernel(const int* __restrict__ dec, const int* __restrict__ endstate,
         for (int idx = threadIdx.x; idx < kCbChunk * W * kCbFrames; idx += blockDim.x) {
           const int ff = idx & (kCbFrames - 1), rw = idx >> 3, u = rw / W, w = rw - u * W;
           const int tt = min(t_lo + u, t_real - 1);
-          cp_async4(&buf[ff * FS + rw], &dec[((size_t)tt * W + w) * B + min(b0 + ff, B - 1)]);
+          cp_async4(&buf[ff * FS + rw], &dec[tt * st + w * sw + min(b0 + ff, B - 1) * sb]);
         }
       }
       cp_async_commit();
@@ -1057,7 +1066,7 @@ chainback_kernel(const int* __restrict__ dec, const int* __restrict__ endstate,
     int kc = 0;
     if (d < n) {
       const int cand = walk_back<ROT>(pos, d, cb, jj, K);
-      const unsigned word = (unsigned)dec[((size_t)(t - d) * W + (cand >> 5)) * B + b];
+      const unsigned word = (unsigned)dec[(t - d) * st + (cand >> 5) * sw + b * sb];
       kc = (word >> (cand & 31)) & 1;
     }
     const unsigned bal = __ballot_sync(kFull, kc);
@@ -1259,22 +1268,24 @@ cudaError_t inplace_dispatch(const InplaceArgs& a) {
 }
 
 template <bool ROT>
-cudaError_t launch_chainback(const int* dec, const int* endstate, int* bits, int K, int B,
-                             int t_real, int nw, int p0, cudaStream_t stream) {
-  if (K < 2 || K > 15 || B < 1 || t_real < 1) return cudaErrorInvalidValue;
+cudaError_t launch_chainback(const int* dec, long long st, long long sw, long long sb,
+                             const int* endstate, int* bits, int K, int B, int t_real, int nw,
+                             int p0, cudaStream_t stream) {
+  if (K < 2 || K > (ROT ? 15 : 24) || B < 1 || t_real < 1 || nw < (t_real + 31) / 32)
+    return cudaErrorInvalidValue;
   const int blocks = (B + kCbFrames - 1) / kCbFrames, threads = kCbFrames * 32;
   const int W = K >= 7 ? 1 << (K - 6) : 1;
   const int smem = 4 * kCbBufs * kCbFrames * (kCbChunk * W + 4);
   if (W == 1)
-    chainback_kernel<ROT, 1><<<blocks, threads, smem, stream>>>(dec, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 1><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
   else if (W == 2)
-    chainback_kernel<ROT, 2><<<blocks, threads, smem, stream>>>(dec, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 2><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
   else if (W == 4)
-    chainback_kernel<ROT, 4><<<blocks, threads, smem, stream>>>(dec, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 4><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
   else if (W == 8)
-    chainback_kernel<ROT, 8><<<blocks, threads, smem, stream>>>(dec, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 8><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
   else
-    chainback_kernel<ROT, 0><<<blocks, threads, 0, stream>>>(dec, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 0><<<blocks, threads, 0, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
   return cudaGetLastError();
 }
 
@@ -1325,16 +1336,20 @@ int viterbi_acs_inplace(const void* m_in, const void* sym, const void* postab,
 // ops/cuda/inplace.py inplace_smem_bytes mirrors).
 int viterbi_acs_inplace_smem(int K, int R, int comp) { return acs_inplace_smem(K, R, comp != 0); }
 
-int viterbi_chainback_tb(const void* dec, const void* endstate, void* bits, int K, int B,
-                         int t_real, int nw, void* stream) {
-  return (int)launch_chainback<false>((const int*)dec, (const int*)endstate, (int*)bits, K, B,
-                                      t_real, nw, 0, (cudaStream_t)stream);
+// The tracebacks over dec, element (t, w, b) at t*st + w*sw + b*sb: state
+// order up to K=24, position order (ROT) up to K=15.
+int viterbi_chainback_tb(const void* dec, long long st, long long sw, long long sb,
+                         const void* endstate, void* bits, int K, int B, int t_real, int nw,
+                         void* stream) {
+  return (int)launch_chainback<false>((const int*)dec, st, sw, sb, (const int*)endstate,
+                                      (int*)bits, K, B, t_real, nw, 0, (cudaStream_t)stream);
 }
 
-int viterbi_chainback_inplace(const void* dec, const void* endstate, void* bits, int K, int B,
-                              int t_real, int nw, int p0, void* stream) {
-  return (int)launch_chainback<true>((const int*)dec, (const int*)endstate, (int*)bits, K, B,
-                                     t_real, nw, p0, (cudaStream_t)stream);
+int viterbi_chainback_inplace(const void* dec, long long st, long long sw, long long sb,
+                              const void* endstate, void* bits, int K, int B, int t_real, int nw,
+                              int p0, void* stream) {
+  return (int)launch_chainback<true>((const int*)dec, st, sw, sb, (const int*)endstate,
+                                     (int*)bits, K, B, t_real, nw, p0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -18,9 +18,27 @@ on the current stream, divided by ``k``: the update chain feeds each link's
 metrics to the next, the traceback chain starts each link from the end state
 ``out[0, -1]`` of the one before, and no link waits for the host
 (``dispatch.phase_fns``).  ``k`` is chosen once per row from one probed
-execution, so that a chain lasts a few milliseconds: enough for the events'
-resolution and the launch gaps of a short phase to vanish in the quotient.
-With ``device="cpu"`` the same chains are timed with ``perf_counter_ns``.
+execution.
+
+The ``cuda`` backend's two chains are captured once a row as CUDA graphs
+(after the warm-up and the probes) and each sample replays one: the
+kernels' time a link, with no Python between the links, as the JAX
+harness's chains run as one jitted program.  A chain then lasts about
+``CHAIN_TARGET_NS``.  Replayed the way a Python loop issues them, the short
+phases (a traceback is one to six small launches) are bound by the host,
+whose speed drifts between states that last from milliseconds to seconds:
+ICE traceback links took 0.031-0.060 ms by the state, alike in 3 ms and in
+one-second chains, so no chain length made the gate's std/mean measure the
+phase rather than the drift.  The ``torch`` backend (the portable path)
+is a host loop by design (and uploads its tables each call, which a graph
+cannot hold), so its chains stay host-driven and last about
+``HOST_CHAIN_NS``: long enough to average the drift of a loop of a second
+or so.  A replay does not pass through the kernels' wrappers, so the
+counts that a capture made (where nothing launched) are taken back, and a
+replay adds those of its graph: the launch counters (``ops/cuda/_build.py``)
+count the launches that ran.
+With ``device="cpu"`` the chains are timed with ``perf_counter_ns`` and
+last ``CHAIN_TARGET_NS``: a check of the plumbing, not a measurement.
 
 What of the JAX harness was left out, and why.  Its samples are differences
 of two chain lengths, each end the minimum of three raw timings, its chains
@@ -49,14 +67,16 @@ import torch
 from ..configs import CodeSpec, NumericSpec
 from ..models.decoder import as_symbols, resolve_device
 from ..ops import acs, chainback as cb
+from ..ops.cuda import _build
 from ..utils.bits import count_bit_errors
 
 __all__ = ["PhaseSample", "BenchResult", "run_phase_bench", "time_update_marginal",
            "time_update_phase", "sync"]
 
 BACKENDS = ("cuda", "torch", "native")
-CHAIN_TARGET_NS = 4e6  # a chain should last about this long
-MAX_LINKS = 64
+CHAIN_TARGET_NS = 4e6  # a graph's (or, on the CPU, a chain's) length
+HOST_CHAIN_NS = 3e9     # a host-driven chain on the card: the portable path
+MAX_LINKS = 1024
 
 
 def sync(tree=None):
@@ -215,8 +235,35 @@ def _native_phases(code: CodeSpec, numeric: NumericSpec, num_data_bits: int):
     return (init_fn, update_fn, chainback_fn, prepare_fn, *dispatch.make_chains(update_fn, _cb))
 
 
-def _links_for(per_link_ns: float) -> int:
-    return max(1, min(MAX_LINKS, math.ceil(CHAIN_TARGET_NS / max(per_link_ns, 1.0))))
+def _links_for(per_link_ns: float, target_ns: float) -> int:
+    return max(1, min(MAX_LINKS, math.ceil(target_ns / max(per_link_ns, 1.0))))
+
+
+def _captured(up_chain, cb_chain, metrics, prepared):
+    """The update chain from ``metrics`` and the traceback chain over its
+    last words, each captured as one CUDA graph: ``(replay the update,
+    replay the traceback, words)``.  The words live in the update graph's
+    pool and are read by the traceback graph, so they are kept with them.
+    The launch counts of the captures are taken back; each replay adds its
+    graph's."""
+    def capture(fn):
+        before = dict(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        counts = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+        _build.LAUNCHES.update(before)
+
+        def replay():
+            graph.replay()
+            for k, v in counts.items():
+                _build.LAUNCHES[k] += v
+
+        return replay, out
+
+    replay_up, (_, words) = capture(lambda: up_chain(metrics, prepared))
+    replay_cb, _ = capture(lambda: cb_chain(words))
+    return replay_up, replay_cb, words
 
 
 def run_phase_bench(
@@ -253,10 +300,17 @@ def run_phase_bench(
     sync()
     n_init = 4
     n_up = n_cb = 1
+    graphs = backend == "cuda" and device.type == "cuda"
     if backend != "native":
-        n_up = _links_for(_timed_ns(lambda: update_fn(metrics, prepared), device)[0])
-        n_cb = _links_for(_timed_ns(lambda: chainback_fn(words), device)[0])
+        target = HOST_CHAIN_NS if device.type == "cuda" and not graphs else CHAIN_TARGET_NS
+        n_up = _links_for(_timed_ns(lambda: update_fn(metrics, prepared), device)[0], target)
+        n_cb = _links_for(_timed_ns(lambda: chainback_fn(words), device)[0], target)
     up_chain, cb_chain = make_up_chain(n_up), make_cb_chain(n_cb)
+    if graphs:
+        replay_up, replay_cb, g_words = _captured(up_chain, cb_chain, metrics, prepared)
+        run_up, run_cb = (lambda m: (replay_up(), g_words)[1]), (lambda w: replay_cb())
+    else:
+        run_up, run_cb = (lambda m: up_chain(m, prepared)[1]), cb_chain
 
     def init_chain():
         for _ in range(n_init):
@@ -267,8 +321,8 @@ def run_phase_bench(
     t_start = time.perf_counter()
     while (time.perf_counter() - t_start) < sampling_time or len(samples) < minimum_samples:
         ti, metrics = _timed_ns(init_chain, device)
-        tu, (_, words) = _timed_ns(lambda: up_chain(metrics, prepared), device)
-        tc, _ = _timed_ns(lambda: cb_chain(words), device)
+        tu, words = _timed_ns(lambda: run_up(metrics), device)
+        tc, _ = _timed_ns(lambda: run_cb(words), device)
         samples.append(PhaseSample(max(int(ti / n_init), 1), max(int(tu / n_up), 1),
                                    max(int(tc / n_cb), 1)))
 

@@ -15,8 +15,7 @@ Backends, those of ``ViterbiDecoder``:
   phases stay consistent across pushes; the release walk through the
   traceback kernels: ``chainback_inplace`` with the window's ``t0`` over
   position-packed history, ``chainback_tb`` over state-order history
-  (K <= 15), the portable walk above K=15.  On a CPU device the kernels'
-  plain versions run.
+  (any K up to 24).  On a CPU device the kernels' plain versions run.
 * ``"torch"`` -- the portable path (``ops.acs`` and ``ops.chainback``).
 
 Whether the history is position-packed is decided once, at construction, by
@@ -187,7 +186,7 @@ class StreamingDecoder:
     def _walk(self, buf: torch.Tensor, Tw: int, end: torch.Tensor) -> torch.Tensor:
         """Walk outputs ``[B, Tw]`` uint8 of the window ``buf[:Tw]``, whose
         first step is the absolute step ``steps_emitted``."""
-        if self.backend == "cuda" and dispatch.supports_chainback(self.code):
+        if self.backend == "cuda":
             if self._rotated:
                 return dispatch.walk_bits(self.code, inplace.chainback_inplace, buf, Tw, end,
                                           self.steps_emitted)

@@ -31,7 +31,7 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "library", "library_paths", "build
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("viterbi_small.cu", "viterbi_large.cu", "viterbi_large4.cu")
+SOURCES = ("viterbi_small.cu", "viterbi_large.cu", "viterbi_large4.cu", "viterbi_walk.cu")
 HEADERS = ("viterbi_large.cuh",)  # included by the sources; part of the cache key
 # -split-compile 0: the optimiser works on a source's kernels in parallel, on
 # all cores (viterbi_small.cu instantiates some forty).
@@ -49,6 +49,7 @@ LAUNCHES: dict[str, int] = {
     "acs_update_large4": 0,
     "acs_update_large4_fields": 0,
     "acs_update_large4_fields8": 0,
+    "chainback_planes": 0,
 }
 
 _P = ctypes.c_void_p
@@ -62,14 +63,17 @@ _SIGNATURES = {
     "viterbi_acs_tb_smem": (_I, _I, _I),
     "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace_smem": (_I, _I, _I),
-    "viterbi_chainback_tb": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "viterbi_chainback_inplace": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "viterbi_chainback_tb": (_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _P),
+    "viterbi_chainback_inplace": (_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large2_chip": (_P, _P, _PI, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large4": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P),
+    "viterbi_plane_walk": (_P, _P, _P, _P, _L, _L, _P, _I, _L, _I, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P),
+    "viterbi_chase": (_P, _I, _P, _P),
 }
 
 _build_seconds: list[float] = []

@@ -25,9 +25,9 @@ chainback agree:
   step remainder on ``large_k2.py``), the others the pair kernel
   ``acs_update_large2`` (``large_k2.py``, its odd tail on ``large_k.py``).
   The choice follows from the code alone, as the JAX package's default does.
-  Their words are in canonical order and walk through ``chainback_tb`` up
-  to K=15 and through the portable walk (``ops/chainback.py``) above, as in
-  the JAX package.
+  Their words are in canonical order and walk through ``chainback_tb``,
+  where they lie, up to K=24 (the JAX package walks them in ``jnp`` above
+  K=15).
 
 ``phase_fns`` gives the update and traceback of every family as separate
 phases in the kernels' own layout, with no transpose, pad or copy inside a
@@ -36,7 +36,8 @@ synchronisation between links (a traceback's end state travels as a device
 tensor).  In the large-K family above K=15 the update returns a walk table
 in place of words (``f8`` for whole frames, else ``f4``, written by the
 depth-4 kernel; else words and tables built from them) and the traceback
-retires 8 or 4 steps a fetch (``ops/radix_planes.py``).
+retires 8 or 4 steps a fetch (``walk.chainback_planes``, the kernel of
+``ops/radix_planes.py``'s table walk).
 
 The batch is not padded: each CUDA block owns whole frames, so there is no
 lane width to fill (the JAX package pads to 128 lanes only on a TPU).  Time
@@ -53,8 +54,8 @@ import torch.nn.functional as F
 
 from ...configs import CodeSpec, NumericSpec
 from ...utils.bits import bits_to_bytes, unpack_words_to_bits
-from .. import acs, chainback as cb, radix_planes as rp
-from . import flags, inplace, kernels, kernels2, large_k2, large_k4
+from .. import acs, radix_planes as rp
+from . import flags, inplace, kernels, kernels2, large_k2, large_k4, walk
 
 __all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace", "supports",
            "supports_chainback", "fits_shared", "unpack_bit_words", "walk_bits", "walk_bytes"]
@@ -79,8 +80,9 @@ def supports(code: CodeSpec) -> bool:
 
 
 def supports_chainback(code: CodeSpec) -> bool:
-    """The traceback kernels walk any K <= 15 (W <= 512 words a step)."""
-    return code.K <= 15
+    """``chainback_tb`` walks canonical words up to K=24 (2^18 words a
+    step)."""
+    return code.K <= kernels.TB_MAX_K
 
 
 def use_inplace(code: CodeSpec, batch: int, device: torch.device | str = "cpu") -> bool:
@@ -189,25 +191,24 @@ def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,
     ``endstate`` is an int or a device tensor (0-d, ``[B]`` or ``[1, B]``).
 
     Routing mirrors ``acs_update``: words of the in-place pair are packed in
-    position order and walk through ``chainback_inplace``; above K=15 the
-    portable walk serves, as the JAX package's jnp walk does."""
+    position order and walk through ``chainback_inplace``, the others through
+    ``chainback_tb`` (any K up to 24, where the JAX package walks above K=15
+    in jnp).  The kernels walk the batch-major words where they lie (at ICE a
+    frame holds 2^18 words a step)."""
     if num_data_bits % 8 != 0:
         raise ValueError("num_data_bits must be a multiple of 8")
-    B, T, W = words.shape
-    if not supports_chainback(code):
-        return cb.chainback(code, words, num_data_bits, endstate)
+    B, T, _ = words.shape
     inplace_route = use_inplace(code, B, words.device)
-    Tp = inplace.pad_time_inplace(code, T)
-    w = F.pad(words.to(torch.int32).permute(1, 2, 0), (0, 0, 0, 0, 0, Tp - T)).contiguous()
-    walk = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
-    return walk_bytes(code, walk, w, T, num_data_bits, endstate)
+    walk_fn = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
+    return walk_bytes(code, walk_fn, words.to(torch.int32).permute(1, 2, 0), T, num_data_bits,
+                      endstate)
 
 
 def walk_bits(code: CodeSpec, walk, dec: torch.Tensor, T: int, endstate, *extra) -> torch.Tensor:
     """Walk outputs ``[B, T]`` uint8 of the traceback kernel ``walk``
     (``kernels.chainback_tb`` or ``inplace.chainback_inplace``, whose
-    ``extra`` is the window's ``t0``) over ``dec [Tp, W, B]`` from
-    ``endstate`` (an int or a device tensor)."""
+    ``extra`` is the window's ``t0``) over ``dec [Tp, W, B]`` (any strides)
+    from ``endstate`` (an int or a device tensor)."""
     end = _end_states(code, endstate, dec.shape[2], dec.device)
     return unpack_bit_words(walk(code, dec, end, T, *extra), T)
 
@@ -257,7 +258,7 @@ def _native_phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
     reset metrics in state order are already in position space)."""
     from ...models.decoder import as_symbols
 
-    walk = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
+    walk_fn = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
 
     def init_fn(batch):
         return acs.init_metrics(code, numeric, batch, device=device).T.contiguous()  # [S, B]
@@ -279,7 +280,7 @@ def _native_phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
 
     def _cb_impl(words_native, endstate):
         dec, T, _ = words_native
-        return walk_bytes(code, walk, dec, T, num_data_bits, endstate)
+        return walk_bytes(code, walk_fn, dec, T, num_data_bits, endstate)
 
     def chainback_fn(words_native):
         return _cb_impl(words_native, 0)
@@ -325,7 +326,8 @@ def phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
     inplace_route = use_inplace(code, batch if batch else 128, device)
     if inplace_route or supports(code):
         return _native_phase_fns(code, numeric, num_data_bits, device, inplace_route)
-    use_planes = not supports_chainback(code) and code.K - 1 >= rp.MIN_N
+    # Above K=15 the traceback phase walks plane tables, as the JAX package's does.
+    use_planes = code.K > 15 and code.K - 1 >= rp.MIN_N
     # Anchor at the first kept data bit: the walk skips the discarded
     # initial-state steps.
     anchor = code.K - 1 if use_planes else 0
@@ -372,9 +374,9 @@ def phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
             return chainback(code, words, num_data_bits, endstate)
         if isinstance(words, dict):  # tables written by the kernel
             cb_anchor = _anchor8(num_data_bits + code.K - 1) if "f8" in words else anchor
-            return rp.chainback_planes(code, None, words, num_data_bits, endstate, cb_anchor)
+            return walk.chainback_planes(code, None, words, num_data_bits, endstate, cb_anchor)
         w_tm, tabs = words
-        return rp.chainback_planes(code, w_tm, tabs, num_data_bits, endstate, anchor)
+        return walk.chainback_planes(code, w_tm, tabs, num_data_bits, endstate, anchor)
 
     def chainback_fn(words):
         return _cb_impl(words, 0)

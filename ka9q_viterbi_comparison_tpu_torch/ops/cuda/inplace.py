@@ -260,4 +260,4 @@ def chainback_inplace(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.T
     if not dec_words.is_cuda:
         return chainback_inplace_ref(code, dec_words, endstate, t_real, t0)
     return launch_chainback("chainback_inplace", "viterbi_chainback_inplace", code, dec_words,
-                            endstate, t_real, int(t0) % (code.K - 1))
+                            endstate, t_real, 15, int(t0) % (code.K - 1))

@@ -36,6 +36,7 @@ __all__ = ["acs_update_tb", "acs_update_tb_ref", "chainback_tb", "chainback_tb_r
 
 STAGE = 32     # symbol steps staged per shared-memory refill (kStage in the source)
 TB_WARPS = 2   # warps a block of the K <= 9 warp form (kTbWarpThreads / 32)
+TB_MAX_K = 24  # chainback_tb's largest trellis: 2^18 words a step
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,25 +196,32 @@ def chainback_tb_ref(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Te
 
 
 def launch_chainback(counter: str, fn_name: str, code: CodeSpec, dec_words: torch.Tensor,
-                     endstate: torch.Tensor, t_real: int, *extra) -> torch.Tensor:
-    """Check and launch one of the two traceback kernels."""
+                     endstate: torch.Tensor, t_real: int, max_k: int, *extra) -> torch.Tensor:
+    """Check and launch one of the two traceback kernels over ``dec_words``
+    of any strides."""
     Tp, W, B = dec_words.shape
     t_real = _check_t_real(t_real, Tp)
-    _build.check_cuda_int32("dec_words", dec_words, (Tp, code.decision_words, B))
+    if code.K > max_k:
+        raise ValueError(f"{counter}: K <= {max_k}, got K={code.K}")
+    if not dec_words.is_cuda or dec_words.dtype != torch.int32 or W != code.decision_words:
+        raise ValueError(f"dec_words: expected CUDA int32 [Tp, {code.decision_words}, B], got "
+                         f"{dec_words.device} {dec_words.dtype} {tuple(dec_words.shape)}")
     _build.check_cuda_int32("endstate", endstate, (1, B))
     nw = -(-Tp // 32)
     bits = torch.empty((nw, B), dtype=torch.int32, device=dec_words.device)
-    _build.launch(counter, fn_name, dec_words.device, dec_words.data_ptr(),
+    _build.launch(counter, fn_name, dec_words.device, dec_words.data_ptr(), *dec_words.stride(),
                   endstate.data_ptr(), bits.data_ptr(), code.K, B, t_real, nw, *extra)
     return bits
 
 
 def chainback_tb(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor,
                  t_real: int) -> torch.Tensor:
-    """Traceback over state-order words.
+    """Traceback over state-order (canonical) words, K <= ``TB_MAX_K``.
 
     Args:
-      dec_words: ``[Tp, W, B]`` int32 from ``acs_update_tb``.
+      dec_words: ``[Tp, W, B]`` int32 of any strides: from ``acs_update_tb``,
+        or above K=15 the batch-major words ``[B, T, W]`` of the large-K
+        updates as ``words.permute(1, 2, 0)``, walked where they lie.
       endstate: ``[1, B]`` int32 survivor state at step ``t_real``.
       t_real: the walk starts at step ``t_real - 1``.
 
@@ -223,4 +231,4 @@ def chainback_tb(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor
     if not dec_words.is_cuda:
         return chainback_tb_ref(code, dec_words, endstate, t_real)
     return launch_chainback("chainback_tb", "viterbi_chainback_tb", code, dec_words,
-                            endstate, t_real)
+                            endstate, t_real, TB_MAX_K)

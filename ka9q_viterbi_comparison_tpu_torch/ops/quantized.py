@@ -26,7 +26,7 @@ These are plain PyTorch, one trellis step a loop iteration, on any device:
 the JAX package writes them in jnp with no Pallas kernel.  Decisions are
 packed canonically (bit ``s % 32`` of word ``s // 32``) and the decode walks
 them through the ``chainback_tb`` traceback kernel (its plain version on a
-CPU device; the portable walk above K=15), never through
+CPU device), never through
 ``dispatch.chainback``, which would walk the in-place route's position
 packing at B >= 128.
 """
@@ -41,7 +41,6 @@ import torch
 from ..configs import CodeSpec
 from ..models.decoder import resolve_device
 from ..utils.bits import pack_bits_to_words
-from . import chainback as cb
 from .cuda import dispatch, inplace, kernels
 
 __all__ = ["ka9q_branch_tables", "quantized_update", "init_metrics_u8", "decode_symbols_ka9q",
@@ -176,8 +175,6 @@ def _decode_u8(code, symbols, num_data_bits, endstate, device, spiral):
     symbols = symbols.to(device=device, dtype=torch.uint8).reshape(symbols.shape[0], -1, code.R)
     B, T = symbols.shape[:2]
     _, words = _u8_update(code, init_metrics_u8(code, B, device=device), symbols, spiral)
-    if not dispatch.supports_chainback(code):
-        return cb.chainback(code, words[:T].permute(2, 0, 1), num_data_bits, endstate)
     return dispatch.walk_bytes(code, kernels.chainback_tb, words, T, num_data_bits, endstate)
 
 

@@ -28,19 +28,18 @@ version.
 
 Above K=15 the main ACS takes the large-K plan, which subtracts a
 renormalisation offset from the metrics it returns: the decisions and the
-end state's ``argmin`` are unchanged by it, and the walk is the portable
-one (``ops/chainback.py``).  The JAX module runs ``acs.acs_update`` for every
+end state's ``argmin`` are unchanged by it, and the walk is
+``chainback_tb`` over the words where they lie.  The JAX module runs ``acs.acs_update`` for every
 K; this path is meant for K <= 15.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..configs import CodeSpec, NumericSpec
 from ..models.decoder import as_symbols
-from ..ops import acs, chainback as cb
+from ..ops import acs
 from ..ops.cuda import dispatch, inplace, kernels
 from ..utils.bits import bits_to_bytes
 from .mesh import Mesh
@@ -55,16 +54,12 @@ def default_overlap(code: CodeSpec) -> int:
 
 def _walk_bits(code: CodeSpec, words: torch.Tensor, end: torch.Tensor, rotated: bool):
     """Walk outputs ``[N, n]`` uint8 over batch-major words ``[N, n, W]``
-    from end states ``[N]``: the route's traceback kernel up to K=15
-    (position-packed words: ``chainback_inplace`` at ``t0 = 0``), the
-    portable walk above."""
+    from end states ``[N]``: the route's traceback kernel over the words
+    where they lie (position-packed words: ``chainback_inplace`` at ``t0 =
+    0``; else ``chainback_tb``, any K up to 24)."""
     N, n, _ = words.shape
-    if not dispatch.supports_chainback(code):
-        return cb.walk(code, words, end)[0].to(torch.uint8)
-    Tp = inplace.pad_time_inplace(code, n)
-    dec = F.pad(words.to(torch.int32).permute(1, 2, 0), (0, 0, 0, 0, 0, Tp - n)).contiguous()
     walk = inplace.chainback_inplace if rotated else kernels.chainback_tb
-    return dispatch.walk_bits(code, walk, dec, n, end)
+    return dispatch.walk_bits(code, walk, words.to(torch.int32).permute(1, 2, 0), n, end)
 
 
 def _time_block_shards(code: CodeSpec, numeric: NumericSpec, mesh: Mesh, sym_blk: torch.Tensor,
