@@ -45,15 +45,11 @@ counts zeroed just before it and read just after:
   every numeric spec, 16 rows of reference-schema JSON held to the hard
   rules of ``harness.check_results`` (no sample on the 1 us floor, BER 0,
   the HBM roofline, K=9 chainback at most 1.2x K=7's, and every cell beats
-  its reference column).  Two of its verdicts are printed, not enforced:
-  the std rule (std/mean <= 15 %), since these 0.15 s windows of three or
-  more samples are too short for it and the checked-in matrix
-  (``data/benchmark_torch.json``) is what must pass it; and the roofline at
-  K = 10-15, where the gate's byte model (the JAX gate's: all W words of a
-  step, 2048 B a decoded bit at K=15) counts words that the port's walk
-  does not read (31 candidate words a round of five steps), so that it
-  refuses the Cassini traceback as measured (an open question of
-  ``ROADMAP.md``);
+  its reference column), the roofline at every K by the bytes the CUDA
+  walk fetches (``check_results.walk_bytes_per_bit``).  The std rule
+  (std/mean <= 15 %) is printed, not enforced, since these 0.15 s windows
+  of three or more samples are too short for it and the checked-in matrix
+  (``data/benchmark_torch.json``) is what must pass it;
 * streams through ``StreamingDecoder(backend="cuda")``: VITERBI27 soft8 at
   B=512 (the in-place pair) and B=64 (the state-order pair) in 16 pushes of
   2046 steps, Cassini soft8 at B=256 in 4 pushes of 2044 steps: the released
@@ -61,8 +57,9 @@ counts zeroed just before it and read just after:
   second push releases the same bits, two noisy pushes equal
   ``backend="torch"``'s; the steady-state push rate beside the batch update
   rate of the same code and batch;
-* the AWGN and replica path: ``harness.ber.measure_ber`` at VITERBI27 soft16,
-  B=512, 256-byte frames, 3 dB on the kernels (coded BER below uncoded); the
+* the AWGN and replica path: a BER point at VITERBI27 soft16, B=512,
+  256-byte frames, 3 dB on the kernels through the curve CLI's own function
+  (``harness.ber_curve.main``; coded BER below uncoded); the
   ka9q- and SPIRAL-exact u8 replicas at K=7 and K=9, B=512, 1024-byte AWGN
   frames on the card, their first 8 frames byte-identical to the CPU's; the
   runner's ``cpu_native`` rows (the host C++ decoder) for viterbi27 and
@@ -97,6 +94,7 @@ port's package beside it.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -129,7 +127,7 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
 )
 from ka9q_viterbi_comparison_tpu_torch import parallel  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.harness import (  # noqa: E402
-    ber,
+    ber_curve,
     check_results,
     comms,
     probe_tb,
@@ -1036,31 +1034,29 @@ def drive_runner(tag):
 
 
 def gate_runner_rows(tag, rows):
-    """The gate's hard rules on path 6's rows (floor, BER, roofline, K=9 over
-    K=7, every cell above its reference column): a violation fails the run.
-    Printed, not enforced: the std rule, since a 0.15 s window of three or
-    more samples is too short for it (the checked-in matrix must pass it);
-    and the roofline at K = 10-15, whose byte model (the JAX gate's, 2048 B a
-    decoded bit at K=15) counts words the port's walk does not read, and
-    refuses the Cassini traceback as measured (open in ``ROADMAP.md``)."""
+    """The gate's hard rules on path 6's rows (floor, BER, the roofline at
+    every K, K=9 over K=7, every cell above its reference column): a
+    violation fails the run.  Printed, not enforced: the std rule, since a
+    0.15 s window of three or more samples is too short for it (the
+    checked-in matrix must pass it)."""
     hard = check_results.check_rows(rows, hard_only=True)
     soft = [x for x in check_results.check_rows(rows) if x not in hard]
-    mid_k = tuple(f"{r['name']} K={r['K']} R={r['R']}:" for r in rows if 10 <= r["K"] <= 15)
-    roof = [x for x in hard if x.startswith(mid_k) and x.endswith("HBM roofline")]
-    hard = [x for x in hard if x not in roof]
+    for r in rows:
+        rate = r["total_bits"] / np.mean(r["chainback_ns"]) * 1e9
+        per_bit = check_results.walk_bytes_per_bit(r["name"], r["K"])
+        print(f"[{tag}] runner roofline {r['name']} K={r['K']} R={r['R']}: chainback "
+              f"{rate / 1e9:.6g} Gbit/s x {per_bit} B/bit = {rate * per_bit / 1e9:.6g} GB/s of "
+              f"{check_results.HBM_BYTES_PER_S / 1e9:.0f}")
     for e in check_results.vs_baseline_rows(rows):
         print(f"[{tag}] runner {e['name']} K={e['K']} R={e['R']} vs the reference: " + ", ".join(
             f"{ph} {e[ph]['ratio']:.2f}x {e[ph]['column']}" for ph in ("update", "chainback")
             if ph in e))
     for x in soft:
         print(f"[{tag}] runner std rule (printed, not enforced on 0.15 s windows): {x}")
-    for x in roof:
-        print(f"[{tag}] runner roofline at K = 10-15 (printed, not enforced: the JAX byte "
-              f"model): {x}")
     if hard:
         raise SystemExit("FAIL: the runner's rows break the gate's hard rules:\n" + "\n".join(hard))
-    print(f"[{tag}] runner rows: the gate's hard rules hold on all {len(rows)} rows "
-          f"({len(soft)} std notes, {len(roof)} roofline notes at K = 10-15)")
+    print(f"[{tag}] runner rows: the gate's hard rules hold on all {len(rows)} rows, the "
+          f"roofline at every K ({len(soft)} std notes)")
 
 
 def drive_phase_fns(tag, rng):
@@ -1281,8 +1277,9 @@ def drive_stream(tag, rng, code, B, n, pushes, kernels_of_path):
 
 
 def drive_awgn(tag, rng):
-    """Path 8: ``measure_ber`` at VITERBI27 soft16 on the kernels (coded BER
-    must lie below the uncoded); the ka9q and SPIRAL u8 replicas on AWGN
+    """Path 8: a BER point at VITERBI27 soft16 on the kernels through the curve
+    CLI's own function, ``harness.ber_curve.main`` (coded BER must lie below
+    the uncoded); the ka9q and SPIRAL u8 replicas on AWGN
     offset-binary symbols at K=7 and K=9 on the card, their first 8 frames
     byte-identical to the same functions on the CPU; the launch counts zeroed
     before and read after.  Then the runner's ``cpu_native`` rows for
@@ -1290,16 +1287,21 @@ def drive_awgn(tag, rng):
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    point = ber.measure_ber(CODE, soft16_spec(2), BER_EBN0, frame_bytes=BER_BYTES, batch=B_BER,
-                            seed=SEED)
+    with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints its doc
+        record = ber_curve.main(["--code", CODE.name, "--spec", "soft16", "--ebn0", str(BER_EBN0),
+                                 "--frame-bytes", str(BER_BYTES), "--batch", str(B_BER),
+                                 "--min-errors", "100", "--max-bits", "10000000",
+                                 "--seed", str(SEED)])
     ber_s = time.perf_counter() - t0
-    lo, hi = point.ber_ci()
-    print(f"[{tag}] BER {CODE.name} soft16 B={B_BER} {BER_BYTES}-byte frames at {BER_EBN0} dB: "
-          f"{point.errors} errors in {point.bits} bits = {point.ber:.6g} (95 % Wilson interval "
-          f"[{lo:.6g}, {hi:.6g}]), FER {point.fer:.4g}, uncoded {point.uncoded_ber:.6g}; "
-          f"{ber_s:.3f} s")
-    if not (0 < point.ber < point.uncoded_ber):
-        raise SystemExit(f"FAIL: coded BER {point.ber} against uncoded {point.uncoded_ber}")
+    (point,) = record["points"]
+    lo, hi = point["ber_ci"]
+    print(f"[{tag}] BER {CODE.name} soft16 B={B_BER} {BER_BYTES}-byte frames at {BER_EBN0} dB "
+          f"(harness.ber_curve): {point['errors']} errors in {point['bits']} bits = "
+          f"{point['ber']:.6g} (95 % Wilson interval [{lo:.6g}, {hi:.6g}]), FER "
+          f"{point['fer']:.4g}, uncoded {point['uncoded_ber']:.6g}; {ber_s:.3f} s")
+    if not (0 < point["ber"] < point["uncoded_ber"]):
+        raise SystemExit(f"FAIL: coded BER {point['ber']} against uncoded "
+                         f"{point['uncoded_ber']}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     same = True
     for code in (VITERBI27, VITERBI29):

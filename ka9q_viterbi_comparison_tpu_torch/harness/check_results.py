@@ -19,9 +19,12 @@ is claim-grade when:
    (``cpu_native`` is the directional host column: BER- and floor-gated
    only);
 3. no chainback rate implies traffic beyond the card's HBM roofline
-   (``utils/chipinfo.py``), by the JAX gate's byte model: K <= 15 walks
-   stream W = 2^(K-1)/32 words x 4 B a decoded bit, and above K=15 the table
-   walk fetches one word a ``W_WALK`` steps;
+   (``utils/chipinfo.py``), counting the bytes a decoded bit of the walk the
+   row's family runs (``walk_bytes_per_bit``): the JAX gate's byte model for
+   ``gpu_torch*`` and ``cpu_native*`` rows (all W = 2^(K-1)/32 words x 4 B a
+   step at K <= 15, a word a ``W_WALK`` steps above), the words the CUDA
+   walk fetches for ``gpu_cuda*`` rows (the same at K <= 9, 24.8 B a bit at
+   K = 10-15, 0.5 B above K=15);
 4. the bit error rate is exactly 0 on every (noiseless) row;
 5. chainback does not speed up as the trellis grows within a backend (K=9
    at most 1.2x K=7: four times the words a step cannot be faster);
@@ -47,14 +50,22 @@ from ..ops.radix_planes import W_WALK
 from ..utils.chipinfo import chip_info
 
 __all__ = ["comparison_for", "mean_rate", "vs_baseline_rows", "losing_cells", "check",
-           "check_rows", "main", "FLOOR_NS", "MAX_REL_STD", "CLAIM_FAMILY", "BASELINE_UPDATE",
-           "BASELINE_CHAINBACK"]
+           "check_rows", "walk_bytes_per_bit", "main", "FLOOR_NS", "MAX_REL_STD", "CLAIM_FAMILY",
+           "BASELINE_UPDATE", "BASELINE_CHAINBACK"]
 
 FLOOR_NS = 1_000
 MAX_REL_STD = 0.15
 K9_OVER_K7 = 1.2
 HBM_BYTES_PER_S = chip_info().hbm_bytes_per_s
 CLAIM_FAMILY = "gpu_cuda"  # rule 6: these cells may not lose
+
+# Rule 3's walks on the card (``tests/test_torch_check_results.py`` holds
+# these to ``csrc/viterbi_small.cu`` and ``csrc/viterbi_walk.cu``).
+WORD_BYTES = 4           # a decision word: 32 states' bits
+CB_STAGED_MAX_WORDS = 8  # launch_chainback stages W <= 8 words a step (K <= 9)
+CB_DEPTH = 5             # kCbDepth: steps a round of chainback_kernel<ROT, 0>
+CB_ROUND_FETCHES = (1 << CB_DEPTH) - 1  # lanes that fetch a candidate's word a round
+PLANE_WINDOW = 8         # steps a fetch of plane_walk_kernel's f8 table
 
 # ---------------------------------------------------------------------------
 # Reference baseline: AMD 7735HS / clang 16, the reference's best machine
@@ -158,6 +169,36 @@ def losing_cells(rows: list[dict]) -> list[str]:
     return out
 
 
+def walk_bytes_per_bit(name: str, K: int) -> float:
+    """Bytes a decoded bit that rule 3 counts for a row: 4 B times the
+    fewest words the row's walk fetches a decoded bit.
+
+    ``gpu_cuda*``: where ``launch_chainback`` stages a step's W <= 8 words
+    (K <= 9) it copies all of them, the JAX count.  At K = 10-15
+    ``chainback_kernel<ROT, 0>`` fetches, in each round of ``CB_DEPTH``
+    steps, the word of each of the 2^d candidate positions d = 0..4 steps
+    back: ``CB_ROUND_FETCHES`` = 31 words a round, 31 x 4 / 5 = 24.8 B a
+    bit.  Over a frame of T steps that is 31 floor(T/5) + 2^(T mod 5) - 1
+    fetches, and since T >= 8 bytes + 4 it is never below the closed form.
+    The eight frames of a block share a 32-B sector of each [t, w] row, so
+    a fetch moves at least its own 4 B; a sector a fetch (198.4 B a bit) is
+    what random data usually costs, but not a bound.  The count is of the
+    lanes' loads: the canonical words' candidates lie in 31 distinct words
+    at K >= 10, and the rotated form's (the in-place words) share a word
+    where their bits lie below bit 5 (``PERF.md`` §7).  Above K=15 the f8
+    table walk of ``phase_fns`` fetches one word a ``PLANE_WINDOW`` = 8-step
+    window: 0.5 B a bit (its f4 route fetches twice as often).
+
+    Every other family keeps the JAX gate's count: all W words a step at
+    K <= 15, one word a ``W_WALK`` steps above."""
+    W = max(1, (1 << (K - 1)) // 32)
+    if name.startswith(CLAIM_FAMILY) and W > CB_STAGED_MAX_WORDS:
+        if K <= 15:
+            return CB_ROUND_FETCHES * WORD_BYTES / CB_DEPTH
+        return WORD_BYTES / PLANE_WINDOW
+    return W * WORD_BYTES if K <= 15 else WORD_BYTES / W_WALK
+
+
 def check_rows(rows: list[dict], hard_only: bool = False) -> list[str]:
     """Every violation in ``rows``.  ``hard_only`` leaves out rule 2 (the
     std rule), for windows too short to gate it."""
@@ -189,8 +230,7 @@ def check_rows(rows: list[dict], hard_only: bool = False) -> list[str]:
         if cb_ns <= 0:
             continue  # refused above; no rate to check
         rate = r["total_input_bytes"] * 8 / (cb_ns * 1e-9)  # aggregate bit/s
-        W = max(1, (1 << (K - 1)) // 32)
-        bytes_per_bit = W * 4 if K <= 15 else 4 / W_WALK
+        bytes_per_bit = walk_bytes_per_bit(name, K)
         if rate * bytes_per_bit > HBM_BYTES_PER_S:
             problems.append(
                 f"{tag}: chainback {rate/1e9:.3g} Gbit/s x {bytes_per_bit} "

@@ -162,8 +162,12 @@ Reference hardware numbers are in `BASELINE.md`; the per-cell comparison is
 the generated section at the bottom of this file.  This matrix passed
 `ka9q_viterbi_comparison_tpu_torch/harness/check_results.py`:
 no sample at or below the {check_results.FLOOR_NS} ns floor, claim-row stds at most
-{check_results.MAX_REL_STD:.0%}, rooflines respected, BER 0, K=9 chainback at
-most {check_results.K9_OVER_K7}x K=7's, and every `gpu_cuda*` cell above its
+{check_results.MAX_REL_STD:.0%}, no traceback beyond the card's HBM roofline
+by the bytes a decoded bit of the walk its row runs (`walk_bytes_per_bit`,
+the words the walk fetches: on the CUDA route
+{check_results.walk_bytes_per_bit("gpu_cuda", 15):g} B at K = 10-15 and {check_results.walk_bytes_per_bit("gpu_cuda", 24):g} B above K=15;
+all W words a step elsewhere), BER 0, K=9 chainback at most
+{check_results.K9_OVER_K7}x K=7's, and every `gpu_cuda*` cell above its
 reference column.  `tests/test_torch_results_quality.py` re-runs the gate on
 every suite run and pins this file to `harness/make_results.py` `render()` of
 the checked-in JSON.

@@ -12,8 +12,10 @@ merge on two partial files.  Tolerance: exact equality (the same floats
 through the same arithmetic)."""
 
 import json
+import re
 import subprocess
 import sys
+from fractions import Fraction
 
 import pytest
 
@@ -195,24 +197,127 @@ def test_each_rule_agrees(jcr, tmp_path, case):
         assert len(pp) == 1
 
 
-def test_roofline_counts_the_port_walks_bytes(jcr, tmp_path):
-    """Rule 3 counts the JAX gate's bytes a decoded bit at every K: W words
-    of 4 B at K <= 15 (2048 B at K=15), a word a ``W_WALK`` steps above.  A
-    Cassini traceback at 1.67 Gbit/s (the checked-in matrix's) is beyond the
-    H100's roofline for both gates, at 1.6 Gbit/s within it for both; a K=24
-    traceback at 5 Gbit/s is within it."""
+def _rate(r: dict, bits_per_s: float) -> None:
+    """Set a row's chainback samples to ``bits_per_s``."""
+    r["chainback_ns"] = [int(r["total_input_bytes"] * 8 / bits_per_s * 1e9)] * 8
+
+
+@pytest.mark.parametrize("case", ["cassini_cuda_measured", "cassini_cuda_beyond", "cassini_torch",
+                                  "k9_cuda_beyond", "k24_cuda_beyond"])
+def test_roofline_counts_the_port_walks_bytes(jcr, tmp_path, case):
+    """Rule 3 counts the bytes a decoded bit of the walk the row's family
+    runs: 24.8 B at K = 10-15 and 0.5 B above K=15 for ``gpu_cuda`` rows,
+    the JAX gate's count (2048 B at K=15, 32 B at K=9, 1 B at K=24) for
+    ``gpu_torch`` rows and for ``gpu_cuda`` at K <= 9.  A Cassini ``gpu_cuda``
+    traceback at 1.67 Gbit/s (the card's reading) passes the port's gate,
+    which the JAX gate refuses; at 140 Gbit/s, beyond the 135 Gbit/s line of
+    24.8 B a bit, the port's gate refuses it too."""
     rows = matrix()
-    cas = _edit(rows, "tpu_pallas", 15, 6)
-    bits = cas["total_input_bytes"] * 8
-    cas["chainback_ns"] = [int(bits / 1.67e9 * 1e9)] * 8
+    if case.startswith("cassini"):
+        r = _edit(rows, "tpu_jnp" if case == "cassini_torch" else "tpu_pallas", 15, 6,
+                  total_input_bytes=1 << 24)  # above the 1 us floor at 140 Gbit/s
+        _rate(r, 140e9 if case == "cassini_cuda_beyond" else 1.67e9)
+    elif case == "k9_cuda_beyond":  # beyond 3.35 TB/s / 32 B = 104.7 Gbit/s
+        r = _edit(rows, "tpu_pallas", 9, 2, total_input_bytes=1 << 24)
+        _rate(r, 110e9)
+    else:  # beyond 3.35 TB/s / 0.5 B = 6.7 Tbit/s
+        r = _edit(rows, "tpu_pallas", 24, 2, total_input_bytes=1 << 24)
+        _rate(r, 7e12)
     jp, pp = both(jcr, tmp_path, rows)
-    assert pp == jp == ["gpu_cuda K=15 R=6: chainback 1.67 Gbit/s x 2048 B/bit exceeds the "
-                        "3350 GB/s HBM roofline"]
-    cas["chainback_ns"] = [int(bits / 1.6e9 * 1e9)] * 8
-    ice = _edit(rows, "tpu_pallas", 24, 2, total_input_bytes=1 << 20)  # above the 1 us floor
-    ice["chainback_ns"] = [int(ice["total_input_bytes"] * 8 / 5e9 * 1e9)] * 8
-    jp, pp = both(jcr, tmp_path, rows)
-    assert pp == jp == []
+    roof = "exceeds the 3350 GB/s HBM roofline"
+    if case == "cassini_cuda_measured":
+        assert pp == []
+        assert jp == [f"gpu_cuda K=15 R=6: chainback 1.67 Gbit/s x 2048 B/bit {roof}"]
+    elif case == "cassini_cuda_beyond":
+        assert pp == [f"gpu_cuda K=15 R=6: chainback 140 Gbit/s x 24.8 B/bit {roof}"]
+        assert jp == [f"gpu_cuda K=15 R=6: chainback 140 Gbit/s x 2048 B/bit {roof}"]
+    elif case == "cassini_torch":
+        assert pp == jp == [f"gpu_torch K=15 R=6: chainback 1.67 Gbit/s x 2048 B/bit {roof}"]
+    elif case == "k9_cuda_beyond":
+        assert pp == jp  # the K=9 over K=7 rule fires beside it in both
+        assert f"gpu_cuda K=9 R=2: chainback 110 Gbit/s x 32 B/bit {roof}" in pp
+    else:
+        assert pp == [f"gpu_cuda K=24 R=2: chainback 7e+03 Gbit/s x 0.5 B/bit {roof}"]
+        assert jp == [f"gpu_cuda K=24 R=2: chainback 7e+03 Gbit/s x 1.0 B/bit {roof}"]
+
+
+def _source(name: str) -> str:
+    return (REPO / "ka9q_viterbi_comparison_tpu_torch" / "csrc" / name).read_text()
+
+
+def test_walk_byte_constants_are_the_kernels():
+    """Rule 3's named constants are the CUDA walks' own, and the count they
+    give never falls below what a frame's walk fetches.
+
+    ``viterbi_small.cu``: ``kCbDepth`` steps a round, lane L's candidate
+    d = log2(L + 1) steps back fetched where d < the round's steps (31 lanes
+    a round of five), ``launch_chainback`` staging W = 1, 2, 4, 8 words a
+    step and walking wider steps on ``chainback_kernel<ROT, 0>``.
+    ``viterbi_walk.cu``: the widest window is 8 steps, one f8 word holding
+    an 8-bit field.  Then, mirrored in Python: a frame of T steps takes
+    31 floor(T/5) + 2^(T mod 5) - 1 fetches, at least 31/5 a decoded bit
+    for every T >= 8 bytes + 4; the f8 plan fetches at least one word a
+    decoded bit's eighth; the canonical words' 31 candidates of a round lie
+    in 31 distinct words at every K = 10-15, and the rotated form's in
+    fewer (137/7 a round on average at K=15, over its 14 rotations)."""
+    small, walk = _source("viterbi_small.cu"), _source("viterbi_walk.cu")
+    assert int(re.search(r"constexpr int kCbDepth = (\d+);", small)[1]) == pcr.CB_DEPTH
+    assert "const int d = 31 - __clz(lane + 1);" in small
+    assert "const int n = min(kCbDepth, t + 1);" in small and "if (d < n) {" in small
+    assert pcr.CB_ROUND_FETCHES == sum(1 << d for d in range(pcr.CB_DEPTH)) == 31
+    launch = small[small.index("cudaError_t launch_chainback("):]
+    launch = launch[:launch.index("return cudaGetLastError();")]
+    staged = [int(w) for w in re.findall(r"W == (\d+)\)\s*\n\s*chainback_kernel<ROT, \1>", launch)]
+    assert staged == [1, 2, 4, 8] and max(staged) == pcr.CB_STAGED_MAX_WORDS
+    assert re.search(r"else\s*\n\s*chainback_kernel<ROT, 0>", launch)
+    assert "const int W = K >= 7 ? 1 << (K - 6) : 1;" in launch
+    assert int(re.search(r"maxw != 4 && maxw != (\d+)", walk)[1]) == pcr.PLANE_WINDOW
+    assert "if (w == 8) {" in walk and "F = (word >> ((s & 3) * 8)) & 0xFFu;" in walk
+
+    per_bit = {K: pcr.walk_bytes_per_bit("gpu_cuda", K) for K in range(2, 25)}
+    assert [per_bit[K] for K in (7, 9, 10, 15, 16, 24)] == [8, 32, 24.8, 24.8, 0.5, 0.5]
+    for nbytes in range(1, 64):
+        for T in range(8 * nbytes + 4, 8 * nbytes + 24):
+            fetches, t = 0, T - 1
+            while t >= 0:  # chainback_kernel's rounds
+                n = min(pcr.CB_DEPTH, t + 1)
+                fetches += sum(1 for lane in range(32) if (lane + 1).bit_length() - 1 < n)
+                t -= n
+            assert fetches == 31 * (T // 5) + 2 ** (T % 5) - 1
+            assert fetches * pcr.WORD_BYTES >= per_bit[15] * 8 * nbytes
+    from ka9q_viterbi_comparison_tpu_torch.ops.radix_planes import plane_plan
+
+    for nbytes in (1, 8, 64):
+        T, anchor = 8 * nbytes + 23, 23
+        fetches = sum(1 if w in (8, 4, 1) else 2 for _, w in plane_plan(T, anchor, 8))
+        assert fetches * pcr.WORD_BYTES >= per_bit[24] * 8 * nbytes
+
+    def distinct_words(K: int, rot: bool) -> Fraction:
+        """Distinct (step, word) pairs a round's 31 lanes fetch, averaged
+        over the rotations and 16 positions (``walk_back`` in Python)."""
+        nrot = K - 1
+        mask = (1 << nrot) - 1
+
+        def rotr(x, r):
+            return ((x >> r) | (x << (nrot - r))) & mask
+
+        total = count = 0
+        for jj in range(nrot if rot else 1):
+            for pos in range(0, 1 << nrot, (1 << nrot) // 16):
+                words = set()
+                for lane in range(31):
+                    d = (lane + 1).bit_length() - 1
+                    cb = int(format((lane + 1) ^ (1 << d), f"0{d}b")[::-1], 2) if d else 0
+                    if rot:
+                        cand = rotr((rotr(pos, jj) & ~((1 << d) - 1)) | cb, nrot - jj if jj else 0)
+                    else:
+                        cand = (pos >> d) | (cb << (K - 1 - d))
+                    words.add((d, cand >> 5))
+                total, count = total + len(words), count + 1
+        return Fraction(total, count)
+
+    assert all(distinct_words(K, False) == pcr.CB_ROUND_FETCHES for K in range(10, 16))
+    assert distinct_words(15, True) == Fraction(137, 7)
 
 
 def test_init_at_or_below_zero_is_refused(jcr, tmp_path):

@@ -3,14 +3,13 @@ generated from it.
 
 The port's counterpart of ``tests/test_results_quality.py``:
 ``data/benchmark_torch.json`` (the runner's rows on an H100) passes every
-rule of ``harness/check_results.py`` but one, which leaves it unpublished:
-rule 3, the HBM roofline by the JAX gate's byte model, refuses the three
-Cassini ``gpu_cuda`` tracebacks.  ``harness/make_results.py`` ``render()``
-refuses the matrix for them, so no ``RESULTS_TORCH.md`` is checked in; with
-that one line lifted, ``render()`` of the matrix names the card and states no
-TPU figure.  Every ``gpu_cuda`` row is compared in both phases and none
-loses; and the port's own tabulation prints what ``scripts/tabulate_data.py``
-prints on the same JSON.  The matrix is checked in, so nothing here skips."""
+rule of ``harness/check_results.py``, and ``RESULTS_TORCH.md`` is
+``harness/make_results.py`` ``render()`` of it byte for byte, titled with the
+card and its power limit as ``nvidia-smi`` printed them at the refresh, and
+stating no TPU figure.  Every ``gpu_cuda`` row is compared in both phases and
+none loses; and the port's own tabulation prints what
+``scripts/tabulate_data.py`` prints on the same JSON.  The matrix and the
+results file are checked in, so nothing here skips."""
 
 import io
 import json
@@ -28,39 +27,25 @@ DATA = REPO / "data" / "benchmark_torch.json"
 RESULTS = REPO / "RESULTS_TORCH.md"
 
 
-# The card the matrix was measured on, as nvidia-smi names it with its power limit.
+# The card the matrix was measured on, as nvidia-smi named it at the refresh.
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-# The rows that rule 3 refuses: the Cassini tracebacks of the CUDA route.
-ROOFLINE_REFUSED = {"gpu_cuda K=15 R=6", "gpu_cuda_s16 K=15 R=6", "gpu_cuda_ob K=15 R=6"}
 
 
 def test_published_matrix_is_claim_grade():
-    """Every rule holds on the checked-in matrix but rule 3 on three rows.
-
-    The JAX gate's byte model counts all W = 512 words of a step, 2048 B a
-    decoded bit at K=15, which caps a traceback at 1.64 Gbit/s on the
-    H100's 3.35 TB/s; the port's Cassini walk (31 candidate words a round of
-    five steps) measured 1.65-1.67 Gbit/s.  Which byte model the port's gate
-    takes there is an open question (``ROADMAP.md`` §3); until it is
-    settled the gate refuses these rows, and exactly these."""
     problems = check_results.check(str(DATA))
-    assert {p.split(":")[0] for p in problems} == ROOFLINE_REFUSED, "\n".join(problems)
-    assert len(problems) == 3 and all(
-        "x 2048 B/bit exceeds the 3350 GB/s HBM roofline" in p for p in problems), problems
+    assert not problems, "\n".join(problems)
 
 
-def test_results_md_is_generated_from_the_data(monkeypatch):
-    """``render`` refuses the checked-in matrix for the gate's three
-    violations, and no ``RESULTS_TORCH.md`` is checked in beside it.  With
-    the roofline lifted (the one rule that fails), ``render`` of the matrix
-    is titled with the card and its power limit, lists the losing cells, and
-    states no TPU figure."""
-    assert not RESULTS.exists(), "RESULTS_TORCH.md is published while the gate refuses the matrix"
-    with pytest.raises(SystemExit, match="not claim-grade") as refused:
-        make_results.render(str(DATA), CARD)
-    assert str(refused.value).count("FAIL ") == 3
-    monkeypatch.setattr(check_results, "HBM_BYTES_PER_S", float("inf"))
-    text = make_results.render(str(DATA), CARD)
+def test_results_md_is_generated_from_the_data():
+    """``RESULTS_TORCH.md`` == ``render(DATA, CARD)``: no claim in it is
+    written by hand.  Its title names the card and its power limit, it lists
+    every losing cell, holds the tabulation of the JSON, and states no TPU
+    figure."""
+    text = RESULTS.read_text()
+    assert text == make_results.render(str(DATA), CARD), (
+        "RESULTS_TORCH.md does not match regeneration from data/benchmark_torch.json; run: "
+        f"python -m ka9q_viterbi_comparison_tpu_torch.harness.make_results "
+        f"data/benchmark_torch.json --chip-name \"{CARD}\"")
     assert text.splitlines()[0] == make_results.TITLE + CARD
     assert re.fullmatch(r"NVIDIA .+, \d+\.\d+ W", CARD)
     rows = json.loads(DATA.read_text())
