@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
-together), holds each of the eleven kernels against its plain PyTorch version
+together), holds each of the thirteen kernels against its plain PyTorch version
 on the card (the in-place pair and the tracebacks in every form: K=3..15,
 R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
 tap both register ends, chained halves; the state-order ACS through both of
@@ -12,7 +12,10 @@ its entry points at K=2..10, R=1..6, batches of 1, 33 and 130;
 ICE, streaming at K=10 R=7, with its launcher calls counted; the large-K
 launch plans from entry metrics at the int32 limit; the two K > 15 walks,
 the table walk on the f8 and f4 tables and ``chainback_tb`` on the words that
-the depth-4 kernels' comparisons at ICE B=8 wrote, and at K=16-17), then
+the depth-4 kernels' comparisons at ICE B=8 wrote, and at K=16-17; the u8
+replicas' kernel, ``quantized_update`` and ``spiral_update``, at K=3, 5, 7
+and 9, an inverted SPIRAL polynomial, batches 1, 33 and 130, random entry
+metrics and all-noise symbols on which SPIRAL's renormalisation fires), then
 drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
@@ -61,9 +64,11 @@ counts zeroed just before it and read just after:
   256-byte frames, 3 dB on the kernels through the curve CLI's own function
   (``harness.ber_curve.main``; coded BER below uncoded); the
   ka9q- and SPIRAL-exact u8 replicas at K=7 and K=9, B=512, 1024-byte AWGN
-  frames on the card, their first 8 frames byte-identical to the CPU's; the
-  runner's ``cpu_native`` rows (the host C++ decoder) for viterbi27 and
-  viterbi615;
+  frames on the card (the u8 kernel and ``chainback_tb``), their first 8
+  frames byte-identical to the CPU's, and (outside the counted run) the
+  kernel's metrics and words on the first 64 frames equal to its plain
+  version's; the runner's ``cpu_native`` rows (the host C++ decoder) for
+  viterbi27 and viterbi615;
 * the multi-device paths on in-process meshes on this one card
   (``parallel.Mesh``): frame DP at VITERBI27 soft8, 1024-byte frames, B=512
   and B=64 on frame=4 (the in-place and the state-order pair a shard); time
@@ -80,7 +85,9 @@ counts zeroed just before it and read just after:
 Then it times the kernels and the decoders' phases with CUDA events (the
 two K > 15 walks beside their latency bound: dependent fetches a frame times
 the card's dependent-load latency, measured by ``harness.probe_walk``, in
-the kernels line as ``latency_bound_ms``), and
+the kernels line as ``latency_bound_ms``; the u8 replicas' update and
+decode at K=7 and K=9, B=512, beside the reference decoders' ka9q and
+spiral columns), and
 counts the launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
 chip) and the device operations of a steady stream push from a profiler
@@ -164,6 +171,7 @@ STREAMS = ((VITERBI27, 512, 2046, 16, ("acs_update_inplace", "chainback_inplace"
            (VITERBI27, 64, 2046, 16, ("acs_update_tb", "chainback_tb")),
            (VITERBI615, 256, 2044, 4, ("acs_update_inplace", "chainback_inplace")))
 BER_BYTES, B_BER, BER_EBN0 = 256, 512, 3.0  # path 8's BER point, VITERBI27 soft16
+U8_HELD = 64  # path 8 holds the replicas' kernel to its plain version on these first frames
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # 132 SMs x 64 INT32 lanes x 1.98 GHz: the int32 issue rate of adds, compares
 # and selects (the data sheet's 33.5 TOP/s counts a multiply-add as two); every
@@ -180,6 +188,8 @@ SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large.cu" f
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large4.cu" for name in
                ("acs_update_large4", "acs_update_large4_fields", "acs_update_large4_fields8")})
 SOURCE["chainback_planes"] = "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_walk.cu"
+SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_u8.cu" for name in
+               ("quantized_update", "spiral_update")})
 REPLACES = {
     "acs_update_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:227",
     "chainback_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:361",
@@ -193,6 +203,10 @@ REPLACES = {
     "acs_update_large4_fields8": "ka9q_viterbi_comparison_tpu/ops/pallas/large_k4.py:669",
     # The table walk replaces no pl.pallas_call: the JAX package runs it as jnp.
     "chainback_planes": "ka9q_viterbi_comparison_tpu/ops/radix_planes.py:299",
+    # The u8 replicas replace no pl.pallas_call either: the JAX package runs
+    # each as one jax.jit over one lax.scan.
+    "quantized_update": "ka9q_viterbi_comparison_tpu/ops/quantized.py:96",
+    "spiral_update": "ka9q_viterbi_comparison_tpu/ops/quantized.py:180",
 }
 K10R7_POLYS = (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621)  # blocks too small on chip
 ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
@@ -715,6 +729,72 @@ def phase_kernels_walk(tag, rng, errs):
              kernels.chainback_tb(K16, dec, e16, 50), kernels.chainback_tb_ref(K16, dec, e16, 50))
     torch.cuda.empty_cache()
     print(f"[{tag}] the K > 15 walks vs plain versions: all bit-identical")
+
+
+def u8_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest difference of two uint8 tensors."""
+    return 0 if torch.equal(a, b) else int((a.int() - b.int()).abs().max())
+
+
+def hold_u8(name, label, code, m0, sym, spiral, errs) -> torch.Tensor:
+    """The replicas' route (``quantized._update``: the kernel on the card)
+    against its plain version ``quantized._u8_update`` on the same inputs:
+    metrics and all ``Tp`` rows of words (zero past T).  Returns the
+    kernel's metrics."""
+    m_k, w_k = quantized._update(code, m0, sym, spiral)
+    m_r, w_r = quantized._u8_update(code, m0, sym, spiral)
+    torch.cuda.synchronize()
+    e = max(u8_err(m_k, m_r), max_abs_err(w_k, w_r))
+    print(f"{name} {label}: max_abs_err {e}")
+    errs[name] = max(errs[name], check(f"{name} {label}", e))
+    return m_k
+
+
+_K5, _K3 = CodeSpec("k5r2", 5, 2, (0o23, 0o35)), CodeSpec("k3r2", 3, 2, (0o7, 0o5))
+# The u8 kernel's comparison set: (code, SPIRAL?) at each (B, T).  An inverted
+# polynomial (SPIRAL's tables carry it) and two codes below 32 states (lanes
+# past S copy states); T of 45 and 301, no multiple of the 32-step stage.
+U8_SMALL = ((VITERBI27, False), (VITERBI27, True), (VITERBI29, False), (VITERBI29, True),
+            (CodeSpec("v27inv", 7, 2, (0o155, -0o117)), True), (_K5, False), (_K5, True),
+            (_K3, False), (_K3, True))
+U8_SMALL_SHAPES = ((1, 45), (33, 301), (130, 64))
+# Update Msym/s of the reference's own ka9q and spiral decoders (BASELINE.md:23,25).
+BASELINE_MSYM = {"viterbi27": {"ka9q": 465, "spiral": 457},
+                 "viterbi29": {"ka9q": 152, "spiral": 137}}
+
+
+def phase_kernels_u8(tag, rng, errs):
+    """The u8 replicas' kernel (``quantized_update``, ``spiral_update``)
+    against its plain version on the card: K=7 and K=9 in both families,
+    SPIRAL with an inverted polynomial, K=5 and K=3 (lanes past S copy
+    states) in both; batches 1, 33 and 130; 45, 301 and 64 steps (two of
+    them no multiple of the 32-step stage); random u8 entry metrics (ka9q's
+    adds wrap) and all-noise symbols, on which SPIRAL's renormalisation
+    fires: the kernel with the threshold out of reach gives other metrics
+    (it must, for every SPIRAL code).  One launch an update."""
+    for code, spiral in U8_SMALL:
+        name = "spiral_update" if spiral else "quantized_update"
+        fired = []
+        for B, T in U8_SMALL_SHAPES:
+            m0 = torch.from_numpy(rng.integers(0, 256, (B, code.num_states), dtype=np.uint8)).cuda()
+            sym = torch.from_numpy(rng.integers(0, 256, (B, T, 2), dtype=np.uint8)).cuda()
+            n = _build.LAUNCHES[name]
+            m_k = hold_u8(name, f"{code.name} B={B} T={T}", code, m0, sym, spiral, errs)
+            if _build.LAUNCHES[name] != n + 1:
+                raise SystemExit(f"FAIL {name}: {_build.LAUNCHES[name] - n} launches an update")
+            if spiral:
+                saved, quantized.SPIRAL_RENORM_THRESHOLD = quantized.SPIRAL_RENORM_THRESHOLD, 255
+                try:
+                    m_off = quantized._update(code, m0, sym, True)[0]
+                finally:
+                    quantized.SPIRAL_RENORM_THRESHOLD = saved
+                fired.append(not torch.equal(m_off, m_k))
+        if spiral:
+            print(f"spiral_update {code.name}: the renormalisation fired in {sum(fired)} of "
+                  f"{len(fired)} cases")
+            if not any(fired):
+                raise SystemExit(f"FAIL spiral_update {code.name}: the renormalisation never fired")
+    print(f"[{tag}] the u8 replicas' kernel vs plain version: all bit-identical")
 
 
 def phase_kernels_inplace_forms(tag, rng, errs):
@@ -1276,14 +1356,23 @@ def drive_stream(tag, rng, code, B, n, pushes, kernels_of_path):
     return launches
 
 
-def drive_awgn(tag, rng):
+# Path 8's replica symbols, kept for the replicas' timing rows: code name ->
+# [B, 2T] uint8 on the card.
+U8_SYMBOLS: dict[str, torch.Tensor] = {}
+
+
+def drive_awgn(tag, rng, errs):
     """Path 8: a BER point at VITERBI27 soft16 on the kernels through the curve
     CLI's own function, ``harness.ber_curve.main`` (coded BER must lie below
     the uncoded); the ka9q and SPIRAL u8 replicas on AWGN
-    offset-binary symbols at K=7 and K=9 on the card, their first 8 frames
-    byte-identical to the same functions on the CPU; the launch counts zeroed
-    before and read after.  Then the runner's ``cpu_native`` rows for
-    viterbi27 and viterbi615 (the host decoder: no kernel)."""
+    offset-binary symbols at K=7 and K=9 on the card (the u8 kernel and
+    ``chainback_tb``), their first 8 frames byte-identical to the same
+    functions on the CPU; the launch counts zeroed before and read after.
+    Then, outside the counted run, the replicas' kernel on the same symbols
+    against its plain version on the first 64 frames (one plain run a code
+    and family; ``errs`` takes their largest error), and the
+    runner's ``cpu_native`` rows for viterbi27 and viterbi615 (the host
+    decoder: no kernel)."""
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1308,6 +1397,7 @@ def drive_awgn(tag, rng):
         data = rng.integers(0, 256, size=(B_BER, FRAME_BYTES), dtype=np.uint8)
         sym = channel.awgn_symbols(code, ka9q_offset_binary_spec(), data, BER_EBN0, gen)
         sym = sym.to(torch.uint8)
+        U8_SYMBOLS[code.name] = sym
         for fam, fn in (("ka9q", quantized.decode_symbols_ka9q),
                         ("spiral", quantized.decode_symbols_spiral)):
             torch.cuda.synchronize()
@@ -1328,11 +1418,26 @@ def drive_awgn(tag, rng):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[{tag}] AWGN and replica path launches: {json.dumps(launches)}")
-    for name in ("acs_update_inplace", "chainback_inplace", "chainback_tb"):
+    for name in ("acs_update_inplace", "chainback_inplace", "chainback_tb", "quantized_update",
+                 "spiral_update"):
         if launches[name] == 0:
             raise SystemExit(f"FAIL: kernel {name} was not launched on the AWGN and replica path")
     if not same:
         raise SystemExit("FAIL: a u8 replica on the card differs from the CPU's")
+    for code in (VITERBI27, VITERBI29):
+        sym = U8_SYMBOLS[code.name].reshape(B_BER, -1, 2)
+        m0 = quantized.init_metrics_u8(code, B_BER)
+        for spiral in (False, True):
+            name = "spiral_update" if spiral else "quantized_update"
+            m_k, w_k = quantized._update(code, m0, sym, spiral)
+            t0 = time.perf_counter()
+            m_r, w_r = quantized._u8_update(code, m0[:U8_HELD], sym[:U8_HELD], spiral)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            e = max(u8_err(m_k[:U8_HELD], m_r), max_abs_err(w_k[..., :U8_HELD].contiguous(), w_r))
+            label = f"{code.name} B={B_BER} AWGN {BER_EBN0} dB, first {U8_HELD} frames"
+            print(f"{name} {label}: max_abs_err {e} (plain version {plain_s:.2f} s)")
+            errs[name] = max(errs[name], check(f"{name} {label}", e))
     # Cassini on the host takes over a second a 256-byte frame, so its rows
     # decode one 64-byte frame.
     for code, batch, n_bytes, samples in ((VITERBI27, None, None, 3), (VITERBI615, 1, 64, 1)):
@@ -1558,9 +1663,9 @@ def unsharded_decode(code, numeric, sym, nbits):
     return decode_symbols(code, numeric, sym.reshape(sym.shape[0], -1), nbits, backend="cuda")
 
 
-def phase_decode(tag, rng):
+def phase_decode(tag, rng, errs):
     """The nine paths; returns the launches of each kernel summed over the
-    paths."""
+    paths (``errs`` takes path 8's comparisons of the u8 kernel)."""
     paths = [
         drive_path(tag, "K=7", CODE, soft8_spec(2), FRAME_BYTES, [(B_INPLACE, None), (B_TB, None)],
                    rng, ("acs_update_tb", "chainback_tb", "acs_update_inplace",
@@ -1582,7 +1687,7 @@ def phase_decode(tag, rng):
     paths.append(drive_runner(tag))
     for code, B, n, pushes, kernels_of_path in STREAMS:
         paths.append(drive_stream(tag, rng, code, B, n, pushes, kernels_of_path))
-    paths.append(drive_awgn(tag, rng))
+    paths.append(drive_awgn(tag, rng, errs))
     paths.append(drive_parallel(tag, rng))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
     zero = [name for name, n in launches.items() if n == 0]
@@ -1886,6 +1991,58 @@ def phase_timing_walk(tag, rows):
     torch.cuda.empty_cache()
 
 
+def u8_bound_ms(B, T, Tp, code, spiral) -> tuple[float, str]:
+    """Least time of one u8 replica update: bytes = 2 symbol bytes a frame
+    and step, the S metric bytes in and out, the words (4 W bytes a frame and
+    row, all Tp rows written); operations per state and step = two adds, a
+    compare, a select, the branch value's pick and the packing = 6, plus
+    SPIRAL's one clamp (a second gives the same decision and metric)."""
+    S, W = code.num_states, code.decision_words
+    return bound(B * (2 * T + 2 * S + 4 * W * Tp), B * T * S * (7 if spiral else 6))
+
+
+def phase_timing_u8(tag, rows):
+    """The u8 replicas' kernel on path 8's AWGN symbols (B=512, 1024-byte
+    frames) at K=7 and K=9, each family: the update alone by CUDA events
+    (its plain version once, at the same shape), ns a step, the launches of
+    one update and of one decode (``_build.LAUNCHES``), the bound, and the
+    decode's rate (the kernel, ``chainback_tb``, unpack and pack) by CUDA
+    events beside the reference decoders' own columns
+    (``BASELINE_MSYM``)."""
+    for code in (VITERBI27, VITERBI29):
+        sym = U8_SYMBOLS.pop(code.name)
+        sym3 = sym.reshape(B_BER, -1, 2)
+        T = sym3.shape[1]
+        Tp = inplace.pad_time_inplace(code, T)
+        m0 = quantized.init_metrics_u8(code, B_BER)
+        shape = f"{code.name} B={B_BER} T={T}"
+        for fam, spiral, update, decode in (
+                ("ka9q", False, quantized.quantized_update, quantized.decode_symbols_ka9q),
+                ("spiral", True, quantized.spiral_update, quantized.decode_symbols_spiral)):
+            name = update.__name__
+            ms = kernel_row(tag, rows, name, update,
+                            lambda c, m, s, spiral=spiral: quantized._u8_update(c, m, s, spiral),
+                            (code, m0, sym3), shape, u8_bound_ms(B_BER, T, Tp, code, spiral), 20,
+                            key=None if code is VITERBI27 else "k9", steps=T)
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            update(code, m0, sym3)
+            per_update = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+            before = dict(_build.LAUNCHES)
+            decode(code, sym, FRAME_BYTES * 8)
+            per_decode = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+            dms = timed_ms(lambda: decode(code, sym, FRAME_BYTES * 8), 10)
+            rate = B_BER * T * code.R / dms / 1e3
+            ref = BASELINE_MSYM[code.name][fam]
+            print(f"[{tag}] {fam} replica {shape}: update {ms:.4f} ms = {1e6 * ms / T:.1f} ns a "
+                  f"step, launches {json.dumps(per_update)}; decode {dms:.4f} ms = {rate:.1f} "
+                  f"Msym/s, launches {json.dumps(per_decode)}; the reference's {fam} column "
+                  f"{ref} Msym/s (BASELINE.md), {rate / ref:.1f}x")
+            if per_update != {name: 1}:
+                raise SystemExit(f"FAIL {name}: an update launched {per_update}")
+    torch.cuda.empty_cache()
+
+
 # The kernels of the large-K sources; each launch reads (frame_min_kernel) or
 # reads and writes every frame's metrics once: a pass through device memory.
 PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_step_kernel",
@@ -1897,7 +2054,8 @@ PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_ste
 TB_KERNELS = ("acs_tb_warp_kernel", "acs_tb_block_kernel", "acs_tb2_block_kernel")
 # Every kernel of the port's sources.
 PORT_KERNELS = PASS_KERNELS + TB_KERNELS + ("acs_inplace_warp_kernel", "acs_inplace_block_kernel",
-                                            "chainback_kernel", "plane_walk_kernel")
+                                            "chainback_kernel", "plane_walk_kernel",
+                                            "u8_warp_kernel")
 
 
 def trace_launches(fn, names=PASS_KERNELS) -> dict[str, int]:
@@ -2096,13 +2254,15 @@ def main() -> int:
     done("depth-4 comparisons")
     phase_kernels_walk(tag, rng, errs)
     done("walk comparisons")
+    phase_kernels_u8(tag, rng, errs)
+    done("u8 replica comparisons")
     phase_kernels_tb2(tag, rng, errs)
     done("depth-2 comparisons")
     phase_kernels_tb_forms(tag, rng, errs)
     done("state-order forms comparisons")
     phase_kernels_inplace_forms(tag, rng, errs)
     done("in-place forms comparisons")
-    launches = phase_decode(tag, rng)
+    launches = phase_decode(tag, rng, errs)
     done("the nine paths")
     rows = phase_timing(tag, rng)
     done("K=7 and K=9 timing")
@@ -2111,6 +2271,8 @@ def main() -> int:
     quads = phase_timing_quad(tag, rng, rows)
     phase_timing_walk(tag, rows)
     done("ICE timing")
+    phase_timing_u8(tag, rows)
+    done("u8 replica timing")
     phase_timing_tb2(tag, rng, rows)
     done("depth-2 and phase_fns timing")
     phase_launch_trace(tag, rng, quads)

@@ -31,7 +31,8 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "library", "library_paths", "build
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("viterbi_small.cu", "viterbi_large.cu", "viterbi_large4.cu", "viterbi_walk.cu")
+SOURCES = ("viterbi_small.cu", "viterbi_large.cu", "viterbi_large4.cu", "viterbi_walk.cu",
+           "viterbi_u8.cu")
 HEADERS = ("viterbi_large.cuh",)  # included by the sources; part of the cache key
 # -split-compile 0: the optimiser works on a source's kernels in parallel, on
 # all cores (viterbi_small.cu instantiates some forty).
@@ -50,6 +51,8 @@ LAUNCHES: dict[str, int] = {
     "acs_update_large4_fields": 0,
     "acs_update_large4_fields8": 0,
     "chainback_planes": 0,
+    "quantized_update": 0,
+    "spiral_update": 0,
 }
 
 _P = ctypes.c_void_p
@@ -74,6 +77,7 @@ _SIGNATURES = {
     "viterbi_plane_walk": (_P, _P, _P, _P, _L, _L, _P, _I, _L, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P),
     "viterbi_chase": (_P, _I, _P, _P),
+    "viterbi_u8": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _build_seconds: list[float] = []

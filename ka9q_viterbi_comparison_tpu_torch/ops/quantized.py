@@ -22,13 +22,17 @@ SPIRAL (``spiral_update``, ref: spiral/spiral27.cpp:130-254): metric
 clamp), ``min`` select with ties to the HIGH predecessor, and per step, when
 metric[0] > 210, the frame's minimum subtracted from every metric.
 
-These are plain PyTorch, one trellis step a loop iteration, on any device:
-the JAX package writes them in jnp with no Pallas kernel.  Decisions are
-packed canonically (bit ``s % 32`` of word ``s // 32``) and the decode walks
-them through the ``chainback_tb`` traceback kernel (its plain version on a
-CPU device), never through
-``dispatch.chainback``, which would walk the in-place route's position
-packing at B >= 128.
+The JAX package writes both in jnp with no Pallas kernel.  The route is
+chosen by device and K (``_on_kernel``): on a CUDA device at K <= 9 one
+launch of ``u8_warp_kernel`` (``csrc/viterbi_u8.cu`` via ``ops/cuda/u8.py``)
+an update, which raises if it fails to build or launch; on the CPU the plain
+version ``_u8_update``, one trellis step a loop iteration; on a CUDA device
+at K >= 10 that same loop, on purpose: no reference binary runs a u8
+rate-1/2 replica there, and the kernel's registers hold 256 states at most.
+Decisions are packed canonically (bit ``s % 32`` of word ``s // 32``) and
+the decode walks them through the ``chainback_tb`` traceback kernel (its
+plain version on a CPU device), never through ``dispatch.chainback``, which
+would walk the in-place route's position packing at B >= 128.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import torch
 from ..configs import CodeSpec
 from ..models.decoder import resolve_device
 from ..utils.bits import pack_bits_to_words
-from .cuda import dispatch, inplace, kernels
+from .cuda import dispatch, inplace, kernels, u8
 
 __all__ = ["ka9q_branch_tables", "quantized_update", "init_metrics_u8", "decode_symbols_ka9q",
            "SPIRAL_RENORM_THRESHOLD", "spiral_update", "decode_symbols_spiral"]
@@ -137,16 +141,33 @@ def _u8_update(code: CodeSpec, metrics: torch.Tensor, symbols: torch.Tensor, spi
                 c_lo.clamp_(max=255)
                 c_hi.clamp_(max=255)
                 torch.le(c_hi, c_lo, out=d)  # ties: the HIGH predecessor
-                m = torch.minimum(c_lo, c_hi).view(B, S)
+                m = torch.minimum(c_lo, c_hi).reshape(B, S)
                 mn = m.amin(dim=-1, keepdim=True)
                 m = torch.where(m[:, :1] > SPIRAL_RENORM_THRESHOLD, m - mn, m)
             else:
                 torch.gt((c_lo - c_hi).view(torch.int8), 0, out=d)  # ties: the LOW predecessor
-                m = torch.where(d, c_hi, c_lo).view(B, S)
+                m = torch.where(d, c_hi, c_lo).reshape(B, S)
         if S < 32:
             decs = torch.nn.functional.pad(decs, (0, 32 - S))
         words[lo_t:hi_t] = pack_bits_to_words(decs).permute(0, 2, 1)
     return m.to(torch.uint8), words
+
+
+def _on_kernel(code: CodeSpec, device: torch.device) -> bool:
+    """Whether an update on ``device`` launches the u8 kernel: on a CUDA
+    device at K <= 9 (``u8.MAX_K``); elsewhere the plain loop runs."""
+    return device.type == "cuda" and code.K <= u8.MAX_K
+
+
+def _update(code: CodeSpec, metrics: torch.Tensor, symbols: torch.Tensor, spiral: bool):
+    """One update by the route of ``_on_kernel``: ``(metrics [B, S] uint8,
+    words [Tp, W, B] int32)``, as ``_u8_update``."""
+    if not _on_kernel(code, metrics.device):
+        return _u8_update(code, metrics, symbols, spiral)
+    tables = _spiral_branch_tables(code) if spiral else ka9q_branch_tables(code)
+    sym = symbols.to(device=metrics.device, dtype=torch.uint8)
+    return u8.launch_u8(code, tables, metrics.to(torch.uint8), sym,
+                        inplace.pad_time_inplace(code, sym.shape[1]), SPIRAL_RENORM_THRESHOLD, spiral)
 
 
 def quantized_update(code: CodeSpec, metrics: torch.Tensor, symbols: torch.Tensor):
@@ -156,15 +177,16 @@ def quantized_update(code: CodeSpec, metrics: torch.Tensor, symbols: torch.Tenso
     ``[B, T, 2]`` u8 offset-binary.  Returns ``(metrics [B, S] uint8, words
     [B, T, W] int32)``, the decisions in the canonical packed layout."""
     T = symbols.shape[1]
-    m, words = _u8_update(code, metrics, symbols, spiral=False)
+    m, words = _update(code, metrics, symbols, spiral=False)
     return m, words[:T].permute(2, 0, 1)
 
 
 def spiral_update(code: CodeSpec, metrics: torch.Tensor, symbols: torch.Tensor):
     """SPIRAL-exact u8 saturating symbol update (spiral27/spiral29); returns
-    ``(metrics, words)`` as :func:`quantized_update`."""
+    ``(metrics, words)`` as :func:`quantized_update`.  The renormalisation
+    threshold is ``SPIRAL_RENORM_THRESHOLD`` as it reads at the call."""
     T = symbols.shape[1]
-    m, words = _u8_update(code, metrics, symbols, spiral=True)
+    m, words = _update(code, metrics, symbols, spiral=True)
     return m, words[:T].permute(2, 0, 1)
 
 
@@ -174,7 +196,7 @@ def _decode_u8(code, symbols, num_data_bits, endstate, device, spiral):
         symbols = torch.from_numpy(symbols)
     symbols = symbols.to(device=device, dtype=torch.uint8).reshape(symbols.shape[0], -1, code.R)
     B, T = symbols.shape[:2]
-    _, words = _u8_update(code, init_metrics_u8(code, B, device=device), symbols, spiral)
+    _, words = _update(code, init_metrics_u8(code, B, device=device), symbols, spiral)
     return dispatch.walk_bytes(code, kernels.chainback_tb, words, T, num_data_bits, endstate)
 
 
