@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
-together), holds each of the thirteen kernels against its plain PyTorch version
+together), holds each of the fourteen kernels against its plain PyTorch version
 on the card (the in-place pair and the tracebacks in every form: K=3..15,
 R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
 tap both register ends, chained halves; the state-order ACS through both of
@@ -15,8 +15,12 @@ the table walk on the f8 and f4 tables and ``chainback_tb`` on the words that
 the depth-4 kernels' comparisons at ICE B=8 wrote, and at K=16-17; the u8
 replicas' kernel, ``quantized_update`` and ``spiral_update``, at K=3, 5, 7
 and 9, an inverted SPIRAL polynomial, batches 1, 33 and 130, random entry
-metrics and all-noise symbols on which SPIRAL's renormalisation fires), then
-drives nine paths --
+metrics and all-noise symbols on which SPIRAL's renormalisation fires; the
+state-sharded trellis step, ``sharded_acs_scan``, at K=9 on state 2, 4 and 8
+and K=15 and K=17 on state 4, batches 1, 3 and 8, with and without words,
+from entry metrics within 600 of the int32 limit, and at ICE: the first 3
+steps of path 9's state-sharded decode and 2 steps of its state x time
+shape), then drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
 harness and the sharded decodes of ``parallel`` -- each with the launch
@@ -74,10 +78,11 @@ counts zeroed just before it and read just after:
   and B=64 on frame=4 (the in-place and the state-order pair a shard); time
   blocks of the same frames (padded to 8200 steps) at B=64 on (frame=2,
   time=4) and on time=8, overlap 56 (the in-place pair); the state-sharded
-  ICE decode, B=8 8-byte frames on state=4; the state x time ICE decode of one
-  64-byte frame on (state=4, time=2), overlap 96 (PyTorch ops: no kernel).
-  Bytes equal the data and the unsharded decode, noisy time-block bits the
-  CPU's; each case prints its time, its collectives counted by
+  ICE decode, B=8 8-byte frames on state=4 (87 launches of the shard step);
+  the state x time ICE decode of one 64-byte frame on (state=4, time=2),
+  overlap 96 (96 warm-up and 364 main launches of it).  Bytes equal the data
+  and the unsharded decode, noisy time-block bits the CPU's; each case
+  prints its time, its collectives counted by
   ``harness.comms.collective_trace`` held against the analytic model, and
   its launches.  One card runs every shard, so the times are the shard
   plumbing's cost, not scaling.
@@ -87,7 +92,8 @@ two K > 15 walks beside their latency bound: dependent fetches a frame times
 the card's dependent-load latency, measured by ``harness.probe_walk``, in
 the kernels line as ``latency_bound_ms``; the u8 replicas' update and
 decode at K=7 and K=9, B=512, beside the reference decoders' ka9q and
-spiral columns), and
+spiral columns; the shard step alone at ICE B=8 on state=4 beside its
+bound, and path 9's two ICE decodes split into scan and traceback), and
 counts the launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
 chip) and the device operations of a steady stream push from a profiler
@@ -133,11 +139,13 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     soft16_spec,
 )
 from ka9q_viterbi_comparison_tpu_torch import parallel  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.parallel import statewise  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.harness import (  # noqa: E402
     ber_curve,
     check_results,
     comms,
     probe_tb,
+    profiling,
     probe_walk,
     runner,
 )
@@ -151,6 +159,7 @@ from ka9q_viterbi_comparison_tpu_torch.ops.cuda import (  # noqa: E402
     large_k,
     large_k2,
     large_k4,
+    shard,
     walk,
 )
 from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_bits, encode_frames  # noqa: E402
@@ -190,6 +199,7 @@ SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large4.cu" 
 SOURCE["chainback_planes"] = "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_walk.cu"
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_u8.cu" for name in
                ("quantized_update", "spiral_update")})
+SOURCE["sharded_acs_scan"] = "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_shard.cu"
 REPLACES = {
     "acs_update_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:227",
     "chainback_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:361",
@@ -207,6 +217,9 @@ REPLACES = {
     # each as one jax.jit over one lax.scan.
     "quantized_update": "ka9q_viterbi_comparison_tpu/ops/quantized.py:96",
     "spiral_update": "ka9q_viterbi_comparison_tpu/ops/quantized.py:180",
+    # The shard step replaces no pl.pallas_call either: the JAX package runs
+    # the state-sharded scan as jnp inside a shard_map.
+    "sharded_acs_scan": "ka9q_viterbi_comparison_tpu/parallel/statewise.py:90",
 }
 K10R7_POLYS = (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621)  # blocks too small on chip
 ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
@@ -795,6 +808,85 @@ def phase_kernels_u8(tag, rng, errs):
             if not any(fired):
                 raise SystemExit(f"FAIL spiral_update {code.name}: the renormalisation never fired")
     print(f"[{tag}] the u8 replicas' kernel vs plain version: all bit-identical")
+
+
+# The shard step's comparison set: (code, mesh axes) at batches 1, 3 and 8,
+# SHARD_STEPS steps, with and without words.  K=9 on state=8 has 16
+# predecessor pairs a shard (half a warp); K=15 is r=1/6.
+_K17 = CodeSpec("k17r2", 17, 2, (0o247461, 0o323475))
+SHARD_SMALL = ((VITERBI29, {"state": 2}), (VITERBI29, {"state": 4}), (VITERBI29, {"state": 8}),
+               (VITERBI615, {"state": 4}), (_K17, {"state": 4}))
+SHARD_STEPS = 6
+ST_BYTES, ST_OVERLAP = 64, 96  # path 9's state x time frame: T = 535, padded to 536
+# Path 9's noisy ICE frames (B=8), made by the comparisons, used by path 9 and the timing.
+SHARD_ICE: dict[str, torch.Tensor] = {}
+
+
+def near_limit_metrics(rng, shape) -> torch.Tensor:
+    """int32 entry metrics on the card: uniform in [0, 5000), a quarter of
+    them within 600 of the int32 limit, so that the adds wrap."""
+    m = rng.integers(0, 5000, size=shape)
+    top = rng.random(shape) < 0.25
+    m[top] = (2**31 - 1) - rng.integers(0, 600, size=int(top.sum()))
+    return torch.from_numpy(m.astype(np.int32)).cuda()
+
+
+def hold_shard(label, mesh, code, numeric, m0, sym, record, errs):
+    """The scan's route on the card (one ``sharded_acs_scan`` launch a step)
+    against its plain version ``_sharded_acs_scan_ref`` on the same inputs:
+    metrics and every word.  Returns the kernel's metrics."""
+    _, s2_block, _ = statewise._shard_geometry(code, mesh, "state")
+    args = (mesh, code, numeric, m0, sym, "state", statewise._parity_index(code, s2_block), record)
+    n = _build.LAUNCHES["sharded_acs_scan"]
+    m_k, d_k = statewise._sharded_acs_scan(*args)
+    launched = _build.LAUNCHES["sharded_acs_scan"] - n
+    m_r, d_r = statewise._sharded_acs_scan_ref(*args)
+    torch.cuda.synchronize()
+    e = max(max_abs_err(m_k, m_r), max_abs_err(d_k, d_r) if record else 0)
+    print(f"sharded_acs_scan {label}: max_abs_err {e}")
+    errs["sharded_acs_scan"] = max(errs["sharded_acs_scan"], check(f"sharded_acs_scan {label}", e))
+    if launched != sym.shape[2]:
+        raise SystemExit(f"FAIL sharded_acs_scan {label}: {launched} launches for "
+                         f"{sym.shape[2]} steps")
+    return m_k
+
+
+def phase_kernels_shard(tag, rng, errs):
+    """The state-sharded trellis step (``sharded_acs_scan``) against the plain
+    scan on the card: ``SHARD_SMALL`` at batches 1, 3 and 8 over
+    ``SHARD_STEPS`` steps, words on and off, from entry metrics near the
+    int32 limit and random soft16 symbols, each shard its own; then at ICE
+    on state=4, B=8, the first 3 steps from path 9's noisy symbols and bias
+    metrics, and 2 steps of its state x time shape (one frame on (state=4,
+    time=2), 8 shards) from near-limit metrics.  No whole ICE scan in the
+    plain version (4.2 ms a step)."""
+    for code, axes in SHARD_SMALL:
+        mesh = parallel.Mesh(axes, "cuda")
+        numeric = soft16_spec(code.R)
+        for i, B in enumerate((1, 3, 8)):
+            n_local = code.num_states // axes["state"]
+            m0 = near_limit_metrics(rng, (mesh.n_local, B, n_local))
+            sym = torch.from_numpy(rng.integers(numeric.soft_low, numeric.soft_high + 1, size=(
+                mesh.n_local, B, SHARD_STEPS, code.R)).astype(np.int32)).cuda()
+            for record in (True, False):
+                hold_shard(f"{code.name} on {axes} B={B} {'words' if record else 'no words'}",
+                           mesh, code, numeric, m0, sym, record, errs)
+    ice = soft8_spec(2)
+    SHARD_ICE["data"], SHARD_ICE["noisy"] = noisy_symbols(ice, B_ICE, rng, 3, VITERBI224,
+                                                          ICE_BYTES)
+    mesh = parallel.Mesh({"state": 4}, "cuda")
+    base, _, n_local = statewise._shard_geometry(VITERBI224, mesh, "state")
+    sym = mesh.shard(SHARD_ICE["noisy"], ())[:, :, :3].contiguous()
+    hold_shard(f"ICE B={B_ICE} on state=4, path 9's first 3 steps", mesh, VITERBI224, ice,
+               statewise._bias_metrics(VITERBI224, ice, mesh, base, B_ICE, n_local), sym, True,
+               errs)
+    mesh = parallel.Mesh({"state": 4, "time": 2}, "cuda")
+    sym = torch.from_numpy(rng.integers(ice.soft_low, ice.soft_high + 1, size=(
+        mesh.n_local, 1, 2, 2)).astype(np.int32)).cuda()
+    hold_shard("ICE B=1 on (state=4, time=2), 2 steps", mesh, VITERBI224, ice,
+               near_limit_metrics(rng, (mesh.n_local, 1, n_local)), sym, True, errs)
+    torch.cuda.empty_cache()
+    print(f"[{tag}] the shard step vs the plain scan: all bit-identical")
 
 
 def phase_kernels_inplace_forms(tag, rng, errs):
@@ -1597,7 +1689,9 @@ def drive_parallel(tag, rng):
     ice = soft8_spec(2)
     T_ice = VITERBI224.transmit_bits(ICE_BYTES)
     data, clean = noisy_symbols(ice, B_ICE, rng, 0, VITERBI224, ICE_BYTES)
-    _, noisy = noisy_symbols(ice, B_ICE, rng, 3, VITERBI224, ICE_BYTES)
+    noisy = SHARD_ICE.get("noisy")
+    if noisy is None:
+        noisy = noisy_symbols(ice, B_ICE, rng, 3, VITERBI224, ICE_BYTES)[1]
     mesh = parallel.Mesh({"state": 4}, "cuda")
 
     def sw_check(rep):
@@ -1617,9 +1711,12 @@ def drive_parallel(tag, rng):
         got, launches = parallel_case(
             tag, f"state-sharded ICE B={B_ICE} {kind} on state=4",
             lambda sym=sym: parallel.state_sharded_decode(VITERBI224, ice, sym, ICE_BYTES * 8, mesh),
-            (), sw_check)
+            ("sharded_acs_scan",), sw_check)
         add(launches)
         outs.append(got)
+        if launches["sharded_acs_scan"] != T_ice:
+            raise SystemExit(f"FAIL: the state-sharded ICE decode launched the shard step "
+                             f"{launches['sharded_acs_scan']} times, not once a step ({T_ice})")
     want = unsharded_decode(VITERBI224, ice, noisy, ICE_BYTES * 8)
     errors, same = count_bit_errors(outs[0], data), bool(torch.equal(outs[1], want))
     print(f"[{tag}] parallel state-sharded ICE: bit errors {errors}, noisy equal to the unsharded "
@@ -1628,7 +1725,7 @@ def drive_parallel(tag, rng):
         raise SystemExit("FAIL: parallel state-sharded ICE")
 
     # State x time at ICE: one 64-byte frame (T = 535, padded to 536).
-    st_bytes, OL = 64, 96
+    st_bytes, OL = ST_BYTES, ST_OVERLAP
     T_st = VITERBI224.transmit_bits(st_bytes)
     data, clean = noisy_symbols(ice, 1, rng, 0, VITERBI224, st_bytes)
     mesh = parallel.Mesh({"state": 4, "time": 2}, "cuda")
@@ -1646,8 +1743,12 @@ def drive_parallel(tag, rng):
     got, launches = parallel_case(
         tag, f"state x time ICE {st_bytes}-byte frame on (state=4, time=2), overlap {OL}",
         lambda: parallel.state_time_decode(VITERBI224, ice, clean, st_bytes * 8, mesh, overlap=OL),
-        (), st_check)
+        ("sharded_acs_scan",), st_check)
     add(launches)
+    steps = OL + (T_st + 1) // 2 + OL  # the warm-up, then the block and its halo
+    if launches["sharded_acs_scan"] != steps:
+        raise SystemExit(f"FAIL: the state x time ICE decode launched the shard step "
+                         f"{launches['sharded_acs_scan']} times, not {steps}")
     errors = count_bit_errors(got, data)
     same = bool(torch.equal(got, unsharded_decode(VITERBI224, ice, clean, st_bytes * 8)))
     print(f"[{tag}] parallel state x time ICE: bit errors {errors}, equal to the unsharded "
@@ -2043,6 +2144,73 @@ def phase_timing_u8(tag, rows):
     torch.cuda.empty_cache()
 
 
+def shard_step_bound_ms(code, B) -> tuple[float, str]:
+    """Least time of one shard step over all shards of a frame batch: bytes =
+    every old metric read once, every new metric written once, a decision
+    bit a state, the step's table rows (2^R ints a shard and frame, n = 4);
+    operations = 6 a state (two adds, a compare, a select, a parity, the
+    packing)."""
+    S = code.num_states
+    return bound(4 * B * S + 4 * B * S + B * S // 8 + 4 * 4 * B * (1 << code.R), 6 * B * S)
+
+
+def phase_timing_shard(tag, rows):
+    """The shard step alone at ICE B=8 on state=4, one card (every shard's
+    launch on path 9's noisy symbols, its sources in place), by CUDA events;
+    the plain step (``_sharded_acs_scan_ref`` over one step) beside it; then
+    path 9's two ICE decodes, each split into its scans and its traceback."""
+    ice = soft8_spec(2)
+    mesh = parallel.Mesh({"state": 4}, "cuda")
+    base, s2_block, n_local = statewise._shard_geometry(VITERBI224, mesh, "state")
+    sym = mesh.shard(SHARD_ICE["noisy"], ())  # [4, 8, 87, 2]
+    m = statewise._bias_metrics(VITERBI224, ice, mesh, base, B_ICE, n_local)
+    chunk = n_local // 2
+    perm_lo, perm_hi = statewise.butterfly_perms(4)
+    lo0, lo1, hi0, hi1 = mesh.ppermute_sources(
+        "state", (m[..., :chunk], perm_lo[0]), (m[..., chunk:], perm_lo[1]),
+        (m[..., :chunk], perm_hi[0]), (m[..., chunk:], perm_hi[1]))
+    lo = [a if a is not None else b for a, b in zip(lo0, lo1)]
+    hi = [a if a is not None else b for a, b in zip(hi0, hi1)]
+    tables = statewise._symbol_tables(VITERBI224, ice, sym).contiguous()
+    out = torch.empty_like(m)
+    words = torch.empty((4, B_ICE, n_local // 32), dtype=torch.int32, device="cuda")
+    s2_base = [c * chunk for c in mesh.axis_coords("state")]
+    ms = timed_ms(lambda: shard.sharded_acs_step(VITERBI224, lo, hi, s2_base, tables, 0, out,
+                                                 words), 50)
+    pidx = statewise._parity_index(VITERBI224, s2_block)
+    plain_ms = timed_ms(lambda: statewise._sharded_acs_scan_ref(
+        mesh, VITERBI224, ice, m, sym[:, :, :1], "state", pidx, True), 3)
+    bnd = shard_step_bound_ms(VITERBI224, B_ICE)
+    rows["sharded_acs_scan"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                                "bound_by": bnd[1]}
+    print(f"[{tag}] sharded_acs_scan ICE B={B_ICE} on state=4 (one card), one step: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+          f"{100 * bnd[0] / ms:.1f}% of bound")
+    _, clean = noisy_symbols(ice, 1, np.random.default_rng(SEED), 0, VITERBI224, ST_BYTES)
+    cases = (
+        (f"state-sharded ICE B={B_ICE} on state=4", lambda: parallel.state_sharded_decode(
+            VITERBI224, ice, SHARD_ICE["noisy"], ICE_BYTES * 8, mesh)),
+        (f"state x time ICE {ST_BYTES}-byte frame on (state=4, time=2)",
+         lambda st=parallel.Mesh({"state": 4, "time": 2}, "cuda"): parallel.state_time_decode(
+             VITERBI224, ice, clean, ST_BYTES * 8, st, overlap=ST_OVERLAP)))
+    for label, fn in cases:
+        fn()  # warm
+        for _ in range(2):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with profiling.sharded_phase_spans() as spans:
+                start.record()
+                fn()
+                end.record()
+            end.synchronize()
+            split = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+            total = start.elapsed_time(end)
+            print(f"[{tag}] {label}: decode {total:.4f} ms = scan {split['scan']:.4f} ms "
+                  f"({len(spans['scan'])} scans) + traceback {split['traceback']:.4f} ms "
+                  f"({100 * split['traceback'] / total:.1f}%) + the rest")
+    torch.cuda.empty_cache()
+
+
 # The kernels of the large-K sources; each launch reads (frame_min_kernel) or
 # reads and writes every frame's metrics once: a pass through device memory.
 PASS_KERNELS = ("acs_pairs_chip_kernel", "acs_large_pair_kernel", "acs_large_step_kernel",
@@ -2055,7 +2223,7 @@ TB_KERNELS = ("acs_tb_warp_kernel", "acs_tb_block_kernel", "acs_tb2_block_kernel
 # Every kernel of the port's sources.
 PORT_KERNELS = PASS_KERNELS + TB_KERNELS + ("acs_inplace_warp_kernel", "acs_inplace_block_kernel",
                                             "chainback_kernel", "plane_walk_kernel",
-                                            "u8_warp_kernel")
+                                            "u8_warp_kernel", "sharded_acs_step_kernel")
 
 
 def trace_launches(fn, names=PASS_KERNELS) -> dict[str, int]:
@@ -2256,6 +2424,8 @@ def main() -> int:
     done("walk comparisons")
     phase_kernels_u8(tag, rng, errs)
     done("u8 replica comparisons")
+    phase_kernels_shard(tag, rng, errs)
+    done("shard step comparisons")
     phase_kernels_tb2(tag, rng, errs)
     done("depth-2 comparisons")
     phase_kernels_tb_forms(tag, rng, errs)
@@ -2273,6 +2443,8 @@ def main() -> int:
     done("ICE timing")
     phase_timing_u8(tag, rows)
     done("u8 replica timing")
+    phase_timing_shard(tag, rows)
+    done("shard step timing")
     phase_timing_tb2(tag, rng, rows)
     done("depth-2 and phase_fns timing")
     phase_launch_trace(tag, rng, quads)

@@ -3,7 +3,7 @@
     torchrun --nproc_per_node 4 -m ka9q_viterbi_comparison_tpu_torch.harness.probe_parallel
 
 Each rank runs on its own card (``parallel.multihost.initialize`` from the
-``env://`` rendezvous torchrun sets up).  Three paths, each with one shard a
+``env://`` rendezvous torchrun sets up).  Four paths, each with one shard a
 rank:
 
 * frame DP: VITERBI27 soft8, 1024-byte frames, 512 a rank (the in-place pair
@@ -12,22 +12,31 @@ rank:
   the ranks), one time block a rank, overlap 56, the halos over NCCL;
 * state sharding: VITERBI224 (ICE) soft8, 8-byte frames, B=8, the state
   axis over the ranks (four half-shard ppermutes and a psum a step over
-  NCCL).
+  NCCL, the step on the shard kernel, ``sharded_acs_scan``); the copy that
+  a send makes of a strided half of the metrics is timed apart;
+* state x time: one 64-byte ICE frame (T = 535, padded to 536) on (state=2,
+  time=2), overlap 96: each rank its (state, time) shard of the trellis,
+  96 warm-up and 364 main steps on the shard kernel, each with the state
+  axis's ppermutes, and its traceback's psums, over NCCL.
 
 Rank 0 decodes the same frames unsharded on its card (the kernels), and the
-time-block and state-sharded ones also through the same sharded function on
-an in-process mesh of as many shards on its one card.  The ranks' bytes must
-equal the unsharded decode (noiseless and noisy frame DP, noiseless time
-blocks, noisy ICE) and the in-process run (noisy time blocks).  Each path
+time-block, state-sharded and state x time ones also through the same
+sharded function on an in-process mesh of as many shards on its one card.
+The ranks' bytes must equal the unsharded decode (noiseless and noisy frame
+DP, noiseless time blocks, noisy ICE, the state x time frame) and the
+in-process run (noisy time blocks, the state x time bits).  Each path
 prints its time (the slowest rank, host clock around synchronised runs,
 median of three after a warm-up), the measured scaling efficiency beside the
 analytic model's prediction at the H100 figures (``harness/comms.py``), and
-the collectives that rank 0 counted.  Results also go to
-``chiprun_out/probe_parallel.json``.
+the collectives that rank 0 counted.  Rank 0 traces one noisy time-block
+run and one state-sharded run (device time by operation, the trace under
+``chiprun_out/``), and splits one state-sharded and one state x time run
+into scan and traceback by CUDA events.  Results also go to ``chiprun_out/probe_parallel.json``.
 
 ``--device cpu`` runs the same program on gloo in CPU processes at small
-sizes (K=7 64-byte frames, VITERBI29 in place of ICE): a rehearsal of the
-control flow, no measurement.
+sizes (K=7 64-byte frames, VITERBI29 in place of ICE, a 32-byte frame and
+overlap 32 for state x time), every shard step on its plain version: a
+rehearsal of the control flow, no measurement.
 """
 
 from __future__ import annotations
@@ -48,8 +57,8 @@ from .. import VITERBI27, VITERBI29, VITERBI224, soft8_spec
 from ..models.functional import decode_symbols
 from ..ops.cuda import _build
 from ..ops.encoder import encode_frames
-from ..parallel import (Mesh, frame_sharded_decode, multihost, state_sharded_decode,
-                        time_block_decode_bits)
+from ..parallel import (Mesh, frame_sharded_decode, multihost, pad_to_time_blocks,
+                        state_sharded_decode, state_time_decode_bits, time_block_decode_bits)
 from ..utils.bits import bits_to_bytes
 from . import comms, profiling
 
@@ -108,7 +117,17 @@ def _local_timed(fn, device, reps=3):
     return out, float(np.median(times))
 
 
-def _profile(fn, rank, log_dir):
+def _phase_split(fn, device) -> tuple[float, float]:
+    """One more run of ``fn`` on every rank, its scans and its tracebacks
+    between CUDA events: this rank's ``(scan ms, traceback ms)``."""
+    dist.barrier()
+    with profiling.sharded_phase_spans() as spans:
+        fn()
+    _sync(device)
+    return tuple(sum(a.elapsed_time(b) for a, b in spans[k]) for k in ("scan", "traceback"))
+
+
+def _profile(fn, rank, log_dir, label):
     """One run of ``fn`` on every rank, rank 0's traced: its device time by
     operation and its host-side waits, beside the run's span."""
     dist.barrier()
@@ -129,7 +148,7 @@ def _profile(fn, rank, log_dir):
     busy = sorted(rows, key=dev, reverse=True)[:8]
     host = {e.key: e.count for e in rows
             if any(w in e.key for w in ("Synchronize", "Memcpy", "LaunchKernel", "nccl"))}
-    print(f"trace of one sharded time-block run on rank 0: span {1e3 * span:.4f} ms, device time "
+    print(f"trace of one {label} run on rank 0: span {1e3 * span:.4f} ms, device time "
           f"{sum(dev(e) for e in rows) / 1e3:.4f} ms; by operation (ms, calls): "
           + "; ".join(f"{e.key[:60]} {dev(e) / 1e3:.4f} x{e.count}" for e in busy if dev(e))
           + f"; host calls {json.dumps(host)}", flush=True)
@@ -219,7 +238,8 @@ def main(argv=None) -> int:
         bits, t_n = _timed(run, device)
         counted, wire = report(run)
         if noise and on_card:
-            _profile(run, rank, pathlib.Path(args.out).parent / "probe_parallel_trace")
+            _profile(run, rank, pathlib.Path(args.out).parent / "probe_parallel_trace",
+                     "sharded time-block")
         parts = _gather(bits)
         if rank == 0:
             got = torch.cat(parts, dim=1)
@@ -259,6 +279,12 @@ def main(argv=None) -> int:
     clean_out = state_sharded_decode(ice, numeric, clean.to(device), ice_bytes * 8, mesh)
     counted, wire = report(lambda: state_sharded_decode(
         ice, numeric, sym.to(device), ice_bytes * 8, mesh))
+    if on_card:
+        sw_run = lambda: state_sharded_decode(ice, numeric, sym.to(device), ice_bytes * 8,  # noqa: E731
+                                              mesh)
+        sw_split = _phase_split(sw_run, device)
+        _profile(sw_run, rank, pathlib.Path(args.out).parent / "probe_parallel_trace_state",
+                 "state-sharded decode")
     parts = _gather(out)
     if rank == 0:
         whole = sym.to(device)
@@ -284,6 +310,70 @@ def main(argv=None) -> int:
         record["state_sharded"] = {"sharded_s": t_n, "one_card_s": t_1, "kernel_decode_s": t_k,
                                    "efficiency": eff, "model": model, "equal": same,
                                    "collectives": counted}
+        if on_card:
+            # A send copies its strided half ([B, chunk] of a [B, 2 chunk] shard) to contiguous memory.
+            n_local = ice.num_states // world
+            half = torch.zeros((1, B_ice, n_local), dtype=torch.int32, device=device)[
+                ..., n_local // 2:]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            half.contiguous()
+            start.record()
+            for _ in range(20):
+                half.contiguous()
+            end.record()
+            end.synchronize()
+            copy_ms = start.elapsed_time(end) / 20
+            say(f"state sharding: a send's copy of a strided half ({half.numel() * 4} bytes) "
+                f"{copy_ms:.4f} ms, two a step and rank: {2 * copy_ms * T_ice:.4f} ms a decode of "
+                f"{1e3 * t_n:.4f}; {1e3 * t_n / T_ice:.4f} ms a step over {world} ranks; one "
+                f"more run on rank 0: scan {sw_split[0]:.4f} ms, traceback {sw_split[1]:.4f} ms")
+            record["state_sharded"].update(send_copy_ms=copy_ms, scan_ms=sw_split[0],
+                                           traceback_ms=sw_split[1])
+
+    # -- state x time -------------------------------------------------------------------
+    # One frame, padded to the time axis; each rank holds one (state, time) shard.
+    n_time, n_state = 2, world // 2
+    st_bytes, st_ol = (64, 96) if on_card else (32, 32)
+    st_data, st_sym = _frames(ice, 1, st_bytes, 0, SEED + 30)
+    padded, _ = pad_to_time_blocks(ice, numeric, st_sym, n_time)
+    Tb = padded.shape[1] // n_time
+    stmesh = Mesh({"state": n_state, "time": n_time}, device)
+    tc = stmesh.axis_coords("time")[0]
+    block = padded[:, tc * Tb:(tc + 1) * Tb].to(device)
+    run = lambda: state_time_decode_bits(ice, numeric, block, stmesh, overlap=st_ol)  # noqa: E731
+    bits, t_n = _timed(run, device)
+    counted, wire = report(run)
+    st_split = _phase_split(run, device) if on_card else (float("nan"),) * 2
+    parts = _gather(bits)
+    if rank == 0:
+        # Rank r holds (state r // n_time, time r % n_time); every state rank of a block agrees.
+        got = torch.cat(parts[:n_time], dim=1)
+        nbits = st_bytes * 8
+        got_bytes = bits_to_bytes(got[:, ice.K - 1:ice.K - 1 + nbits])
+        want, t_k = _local_timed(lambda: decode_symbols(ice, numeric, st_sym.reshape(1, -1).to(
+            device), nbits, backend="cuda", device=device), device)
+        inproc = Mesh({"state": n_state, "time": n_time}, device, spans_processes=False)
+        same_inproc, t_1 = _local_timed(lambda: state_time_decode_bits(
+            ice, numeric, padded.to(device), inproc, overlap=st_ol), device)
+        agree = all(torch.equal(parts[r], parts[r % n_time]) for r in range(world))
+        same = (bool(torch.equal(got_bytes, want)) and agree
+                and bool(torch.equal(same_inproc, got)))
+        errors = int((got_bytes.cpu().numpy() != st_data).sum())
+        ok &= same and not errors
+        eff = t_1 / (world * t_n)
+        model = comms.state_time_model(ice, n_state, n_time, 1, padded.shape[1], overlap=st_ol)
+        say(f"state x time {ice.name} one {st_bytes}-byte frame on (state={n_state}, "
+            f"time={n_time}), {Tb} steps a block, overlap {st_ol}, over {world} ranks: sharded "
+            f"{1e3 * t_n:.4f} ms, the same function on one card ({world} shards) "
+            f"{1e3 * t_1:.4f} ms, unsharded decode on the kernels {1e3 * t_k:.4f} ms; measured "
+            f"scaling efficiency {eff:.4f} (model {model['predicted_efficiency']:.4f}); bytes "
+            f"equal to the unsharded decode and to the one-card run {same}, differing bytes "
+            f"{errors}; collectives {counted}, {wire} wire bytes; one more run on rank 0: scans "
+            f"{st_split[0]:.4f} ms, traceback {st_split[1]:.4f} ms")
+        record["state_time"] = {"sharded_s": t_n, "one_card_s": t_1, "kernel_decode_s": t_k,
+                                "efficiency": eff, "model": model, "equal": same,
+                                "collectives": counted, "scan_ms": st_split[0],
+                                "traceback_ms": st_split[1]}
         record["ok"] = bool(ok)
         if on_card:
             path = pathlib.Path(args.out)

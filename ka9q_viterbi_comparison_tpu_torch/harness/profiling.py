@@ -16,7 +16,7 @@ import time
 
 import torch
 
-__all__ = ["device_trace", "Timer", "annotate"]
+__all__ = ["device_trace", "Timer", "annotate", "sharded_phase_spans"]
 
 
 @contextlib.contextmanager
@@ -32,6 +32,39 @@ def device_trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def sharded_phase_spans():
+    """CUDA events around every ``_sharded_acs_scan`` and
+    ``_sharded_traceback`` call inside the block (``parallel/statewise.py``,
+    and ``parallel/state_time.py``, which imports both): yields ``{"scan":
+    [...], "traceback": [...]}`` of (start, end) event pairs, read after a
+    synchronise with ``elapsed_time``."""
+    from ..parallel import state_time, statewise
+
+    spans = {"scan": [], "traceback": []}
+    saved = []
+    for mod in (statewise, state_time):
+        for name, key in (("_sharded_acs_scan", "scan"), ("_sharded_traceback", "traceback")):
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def timed(*args, fn=fn, key=key):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                out = fn(*args)
+                end.record()
+                spans[key].append((start, end))
+                return out
+
+            setattr(mod, name, timed)
+    try:
+        yield spans
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def annotate(name: str):

@@ -32,7 +32,7 @@ PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("viterbi_small.cu", "viterbi_large.cu", "viterbi_large4.cu", "viterbi_walk.cu",
-           "viterbi_u8.cu")
+           "viterbi_u8.cu", "viterbi_shard.cu")
 HEADERS = ("viterbi_large.cuh",)  # included by the sources; part of the cache key
 # -split-compile 0: the optimiser works on a source's kernels in parallel, on
 # all cores (viterbi_small.cu instantiates some forty).
@@ -53,6 +53,7 @@ LAUNCHES: dict[str, int] = {
     "chainback_planes": 0,
     "quantized_update": 0,
     "spiral_update": 0,
+    "sharded_acs_scan": 0,
 }
 
 _P = ctypes.c_void_p
@@ -78,6 +79,7 @@ _SIGNATURES = {
                            _I, _I, _P),
     "viterbi_chase": (_P, _I, _P, _P),
     "viterbi_u8": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_shard_step": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _L, _P),
 }
 
 _build_seconds: list[float] = []

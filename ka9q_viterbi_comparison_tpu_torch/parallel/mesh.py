@@ -19,6 +19,9 @@ ops on the leading dimension.  Across processes, ``ppermute`` is a batch of
 the reductions are ``all_reduce`` over the ranks that share a reduction
 group.  The backend follows the device: NCCL serves a CUDA device and gloo
 the CPU, and a mesh refuses a process group of the other backend.
+``ppermute_sources`` moves the same data but places nothing: each target
+gets a view of its local source or the buffer a transfer filled, for a
+kernel that reads its operands where they lie.
 
 Counting.  Every collective goes through ``_record``, which appends one
 ``CollectiveCall`` to each list opened by ``recording()``;
@@ -272,6 +275,39 @@ class Mesh:
             if ops:
                 for req in dist.batch_isend_irecv(ops):
                     req.wait()
+        return out
+
+    def ppermute_sources(self, axis: str, *moves) -> list[list[torch.Tensor | None]]:
+        """``ppermute`` of each ``(x, perm)`` in ``moves``, left where the data
+        lies: for each move, a list over the local shards of what the shard
+        receives -- a view ``x[source]`` where the source is in this process,
+        a buffer that the cross-process transfer filled where it is not, None
+        where no pair targets the shard.  Each move is recorded as
+        ``ppermute`` records it; the transfers of all moves go in one batch."""
+        out, ops, tag = [], [], 0
+        for x, perm in moves:
+            perm = tuple((int(s), int(d)) for s, d in perm)
+            if len({d for _, d in perm}) != len(perm) or len({s for s, _ in perm}) != len(perm):
+                raise ValueError(f"ppermute: {perm} is not a permutation")
+            self._record("ppermute", x, len(perm), (axis,), perm)
+            placed = [None] * self.n_local
+            for s, d in self._pairs(axis, perm):
+                so, do = self.owner(s), self.owner(d)
+                if do == self.rank and so == self.rank:
+                    placed[d - self.first] = x[s - self.first]
+                elif do == self.rank:
+                    placed[d - self.first] = torch.empty(x.shape[1:], dtype=x.dtype,
+                                                         device=x.device)
+                    ops.append(dist.P2POp(dist.irecv, placed[d - self.first], so, tag=tag))
+                elif so == self.rank:
+                    # NCCL sends contiguous memory: a strided source is copied.
+                    ops.append(dist.P2POp(dist.isend, x[s - self.first].contiguous(), do,
+                                          tag=tag))
+                tag += 1  # every process counts the pairs in one order
+            out.append(placed)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
         return out
 
     def _process_groups(self, axis: str) -> dict[tuple, object]:

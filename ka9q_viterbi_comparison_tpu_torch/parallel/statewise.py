@@ -25,8 +25,17 @@ The decisions stay bit-packed, ``[T, n_local_shards, B, n_local/32]`` int32
 traceback walks the survivor serially; each step the owner's decision bit
 is read with a gather and summed over the shards with one ``psum`` of
 ``[B]`` int32 (the JAX module's ``psum`` of a one-hot selection; the bits
-are equal).  These are PyTorch ops: the JAX module's are ``jnp``, with no
-Pallas kernel behind them.
+are equal).
+
+The JAX module's scan is ``jnp`` with no Pallas kernel behind it.  Here the
+scan takes its route by device (``_on_kernel``): on a CUDA device one launch
+a step of ``sharded_acs_step_kernel`` (``ops/cuda/shard.py``) for every
+local shard and frame, each target's old metrics read where the exchange
+left them (``Mesh.ppermute_sources``: halves of the local shards in place,
+buffers that NCCL filled across processes), the penalty index computed in
+the kernel; on the CPU the plain version ``_sharded_acs_scan_ref``, a round
+of PyTorch operations a step.  The traceback is PyTorch operations either
+way.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 
 from ..configs import CodeSpec, NumericSpec
 from ..models.decoder import as_symbols
+from ..ops.cuda import shard
 from ..utils.bits import bits_to_bytes
 from .mesh import Mesh
 
@@ -145,12 +155,52 @@ def _pack_words(dec: torch.Tensor) -> torch.Tensor:
     return by.view(torch.int32)
 
 
+def _on_kernel(device: torch.device) -> bool:
+    """The route of ``_sharded_acs_scan``: the kernel on a CUDA device."""
+    return device.type == "cuda"
+
+
 def _sharded_acs_scan(mesh: Mesh, code: CodeSpec, numeric: NumericSpec, m_local0: torch.Tensor,
                       sym: torch.Tensor, state_axis: str, pidx: torch.Tensor, record: bool):
     """State-sharded ACS over ``sym [n, B, T, R]`` (each shard's symbols)
     from local metrics ``m_local0 [n, B, n_local]``.  Returns ``(metrics,
     dec)``, ``dec`` the packed decisions ``[T, n, B, ceil(n_local/32)]``
-    int32 if ``record`` else ``None``."""
+    int32 if ``record`` else ``None``.  On a CUDA device one kernel launch a
+    step (``pidx`` is then computed in the kernel); on the CPU the plain
+    version."""
+    if not _on_kernel(m_local0.device):
+        return _sharded_acs_scan_ref(mesh, code, numeric, m_local0, sym, state_axis, pidx, record)
+    n_dev = mesh.shape[state_axis]
+    chunk = code.num_states // (2 * n_dev)
+    n, B, n_local = m_local0.shape
+    T = sym.shape[2]
+    perm_lo, perm_hi = butterfly_perms(n_dev)
+    tables = _symbol_tables(code, numeric, sym).contiguous()  # [n, B, T, 2^R]
+    dec = (torch.empty((T, n, B, -(-n_local // 32)), dtype=torch.int32, device=m_local0.device)
+           if record else None)
+    s2_base = [c * chunk for c in mesh.axis_coords(state_axis)]
+    m = m_local0.contiguous()
+    bufs = (torch.empty_like(m), torch.empty_like(m))
+    for t in range(T):
+        halves = (m[..., :chunk], m[..., chunk:])
+        lo0, lo1, hi0, hi1 = mesh.ppermute_sources(
+            state_axis, (halves[0], perm_lo[0]), (halves[1], perm_lo[1]),
+            (halves[0], perm_hi[0]), (halves[1], perm_hi[1]))
+        # Each target receives its low half from one of two moves, its high from one of two.
+        lo = [a if a is not None else b for a, b in zip(lo0, lo1)]
+        hi = [a if a is not None else b for a, b in zip(hi0, hi1)]
+        shard.sharded_acs_step(code, lo, hi, s2_base, tables, t, bufs[t % 2],
+                               dec[t] if record else None)
+        m = bufs[t % 2]
+    return m, dec
+
+
+def _sharded_acs_scan_ref(mesh: Mesh, code: CodeSpec, numeric: NumericSpec,
+                          m_local0: torch.Tensor, sym: torch.Tensor, state_axis: str,
+                          pidx: torch.Tensor, record: bool):
+    """The plain version of ``_sharded_acs_scan``: per step the four
+    half-shard ``ppermute``s, the penalties gathered by ``pidx``, the
+    select and the packing, in PyTorch operations."""
     n_dev = mesh.shape[state_axis]
     S = code.num_states
     chunk = S // (2 * n_dev)
