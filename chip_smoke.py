@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``csrc/`` (one ``nvcc`` per source, started
-together), holds each of the fourteen kernels against its plain PyTorch version
+together), holds each of the sixteen kernels against its plain PyTorch version
 on the card (the in-place pair and the tracebacks in every form: K=3..15,
 R=1..6, every kind of ``t0`` and ``t_real``, ragged batches, codes that do not
 tap both register ends, chained halves; the state-order ACS through both of
@@ -20,7 +20,10 @@ state-sharded trellis step, ``sharded_acs_scan``, at K=9 on state 2, 4 and 8
 and K=15 and K=17 on state 4, batches 1, 3 and 8, with and without words,
 from entry metrics within 600 of the int32 limit, and at ICE: the first 3
 steps of path 9's state-sharded decode and 2 steps of its state x time
-shape), then drives nine paths --
+shape; the state-sharded traceback's walk, ``sharded_traceback``, one launch
+a decode, and its step kernel, ``sharded_traceback_step``, one launch a step
+where a state line spans processes, on the words of each of those scans and
+on the whole words of path 9's two ICE decodes), then drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
 harness and the sharded decodes of ``parallel`` -- each with the launch
@@ -78,9 +81,10 @@ counts zeroed just before it and read just after:
   and B=64 on frame=4 (the in-place and the state-order pair a shard); time
   blocks of the same frames (padded to 8200 steps) at B=64 on (frame=2,
   time=4) and on time=8, overlap 56 (the in-place pair); the state-sharded
-  ICE decode, B=8 8-byte frames on state=4 (87 launches of the shard step);
-  the state x time ICE decode of one 64-byte frame on (state=4, time=2),
-  overlap 96 (96 warm-up and 364 main launches of it).  Bytes equal the data
+  ICE decode, B=8 8-byte frames on state=4 (87 launches of the shard step,
+  one of the walk); the state x time ICE decode of one 64-byte frame on
+  (state=4, time=2), overlap 96 (96 warm-up and 364 main launches of the
+  step, one walk for both time blocks).  Bytes equal the data
   and the unsharded decode, noisy time-block bits the CPU's; each case
   prints its time, its collectives counted by
   ``harness.comms.collective_trace`` held against the analytic model, and
@@ -93,7 +97,8 @@ the card's dependent-load latency, measured by ``harness.probe_walk``, in
 the kernels line as ``latency_bound_ms``; the u8 replicas' update and
 decode at K=7 and K=9, B=512, beside the reference decoders' ka9q and
 spiral columns; the shard step alone at ICE B=8 on state=4 beside its
-bound, and path 9's two ICE decodes split into scan and traceback), and
+bound; the walk alone on path 9's two ICE decodes' words beside its latency
+bound, and those decodes split into scan and traceback), and
 counts the launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
 chip) and the device operations of a steady stream push from a profiler
@@ -199,7 +204,8 @@ SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_large4.cu" 
 SOURCE["chainback_planes"] = "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_walk.cu"
 SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_u8.cu" for name in
                ("quantized_update", "spiral_update")})
-SOURCE["sharded_acs_scan"] = "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_shard.cu"
+SOURCE.update({name: "ka9q_viterbi_comparison_tpu_torch/csrc/viterbi_shard.cu" for name in
+               ("sharded_acs_scan", "sharded_traceback")})
 REPLACES = {
     "acs_update_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:227",
     "chainback_tb": "ka9q_viterbi_comparison_tpu/ops/pallas/kernels.py:361",
@@ -220,6 +226,11 @@ REPLACES = {
     # The shard step replaces no pl.pallas_call either: the JAX package runs
     # the state-sharded scan as jnp inside a shard_map.
     "sharded_acs_scan": "ka9q_viterbi_comparison_tpu/parallel/statewise.py:90",
+    # Nor does the walk: the JAX package's traceback is a lax.scan inside the
+    # shard_map.  Its step kernel, sharded_traceback_step, runs only where a
+    # state line spans processes, so no path of this one-card script launches
+    # it; it is held to its plain version below, outside the kernels line.
+    "sharded_traceback": "ka9q_viterbi_comparison_tpu/parallel/statewise.py:120",
 }
 K10R7_POLYS = (0o1167, 0o1546, 0o1353, 0o1731, 0o1215, 0o1473, 0o1621)  # blocks too small on chip
 ICE_LEAD4, ICE_LEAD8 = 3, 7  # (K-1) % 4, and the 8-aligned anchor 23 % 8, at T = 87
@@ -820,6 +831,9 @@ SHARD_STEPS = 6
 ST_BYTES, ST_OVERLAP = 64, 96  # path 9's state x time frame: T = 535, padded to 536
 # Path 9's noisy ICE frames (B=8), made by the comparisons, used by path 9 and the timing.
 SHARD_ICE: dict[str, torch.Tensor] = {}
+# The tracebacks of path 9's two ICE decodes ("sw", "st"): the arguments of
+# ``_sharded_traceback`` and the plain version's time on them, from the comparisons.
+WALK_ICE: dict[str, tuple] = {}
 
 
 def near_limit_metrics(rng, shape) -> torch.Tensor:
@@ -848,7 +862,46 @@ def hold_shard(label, mesh, code, numeric, m0, sym, record, errs):
     if launched != sym.shape[2]:
         raise SystemExit(f"FAIL sharded_acs_scan {label}: {launched} launches for "
                          f"{sym.shape[2]} steps")
+    if record:  # the words walked from a random end state a line and frame
+        g = np.random.default_rng(code.K * m0.shape[1])
+        end = torch.empty((mesh.n_local, m0.shape[1]), dtype=torch.int32)
+        for ln in mesh.lines_in_process("state"):
+            end[ln] = torch.from_numpy(g.integers(0, code.num_states, size=end.shape[1],
+                                                  dtype=np.int32))
+        hold_walk(label, mesh, code, d_k, end.cuda(), errs)
     return m_k
+
+
+def bits_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest difference of two uint8 bit tensors."""
+    return 0 if torch.equal(a, b) else int((a.int() - b.int()).abs().max())
+
+
+def hold_walk(label, mesh, code, dec, end, errs) -> float:
+    """The traceback's two card routes against its plain version
+    ``_sharded_traceback_ref`` on the same words and end states: the walk
+    (``_sharded_traceback``: one ``sharded_traceback`` launch) and the step
+    route (``_walk_steps``, as where the lines span processes: one
+    ``sharded_traceback_step`` launch and one ``psum`` a step).  Returns the
+    plain version's time, ms."""
+    base, _, n_local = statewise._shard_geometry(code, mesh, "state")
+    args = (mesh, code, dec, end, base, n_local, "state")
+    before = dict(_build.LAUNCHES)
+    got = statewise._sharded_traceback(*args)
+    walks = _build.LAUNCHES["sharded_traceback"] - before["sharded_traceback"]
+    steps = statewise._walk_steps(mesh, code, dec, end, n_local, "state")
+    step_launches = _build.LAUNCHES["sharded_traceback_step"] - before["sharded_traceback_step"]
+    out = []
+    plain_ms = once_ms(lambda: out.append(statewise._sharded_traceback_ref(*args)))
+    torch.cuda.synchronize()
+    for name, bits in (("sharded_traceback", got), ("sharded_traceback_step", steps)):
+        e = bits_err(bits, out[0])
+        print(f"{name} {label}: max_abs_err {e}")
+        errs[name] = max(errs[name], check(f"{name} {label}", e))
+    if (walks, step_launches) != (1, dec.shape[0]):
+        raise SystemExit(f"FAIL sharded_traceback {label}: {walks} walk launches and "
+                         f"{step_launches} step launches for {dec.shape[0]} steps")
+    return plain_ms
 
 
 def phase_kernels_shard(tag, rng, errs):
@@ -885,8 +938,43 @@ def phase_kernels_shard(tag, rng, errs):
         mesh.n_local, 1, 2, 2)).astype(np.int32)).cuda()
     hold_shard("ICE B=1 on (state=4, time=2), 2 steps", mesh, VITERBI224, ice,
                near_limit_metrics(rng, (mesh.n_local, 1, n_local)), sym, True, errs)
+    # Path 9's two ICE decodes: their tracebacks' inputs as the decodes hand them over.
+    _, st_noisy = noisy_symbols(ice, 1, rng, 3, VITERBI224, ST_BYTES)
+    cases = (("sw", f"ICE B={B_ICE} on state=4, path 9's whole words", lambda: (
+        parallel.state_sharded_decode_bits(VITERBI224, ice, SHARD_ICE["noisy"],
+                                           parallel.Mesh({"state": 4}, "cuda")))),
+             ("st", f"ICE {ST_BYTES}-byte frame on (state=4, time=2), path 9's whole words",
+              lambda: parallel.state_time_decode(
+                  VITERBI224, ice, st_noisy, ST_BYTES * 8, parallel.Mesh({"state": 4, "time": 2},
+                                                                         "cuda"),
+                  overlap=ST_OVERLAP)))
+    for key, label, run in cases:
+        with captured_tracebacks() as seen:
+            run()
+        args = seen[0]
+        WALK_ICE[key] = (args, hold_walk(label, args[0], VITERBI224, args[2], args[3], errs))
     torch.cuda.empty_cache()
-    print(f"[{tag}] the shard step vs the plain scan: all bit-identical")
+    print(f"[{tag}] the shard step and the walks vs their plain versions: all bit-identical")
+
+
+@contextlib.contextmanager
+def captured_tracebacks():
+    """The arguments of every ``_sharded_traceback`` call inside the block
+    (``parallel/statewise.py`` and ``parallel/state_time.py``, which imports
+    it), each call made as it would be."""
+    from ka9q_viterbi_comparison_tpu_torch.parallel import state_time
+
+    seen, saved = [], [(mod, mod._sharded_traceback) for mod in (statewise, state_time)]
+    for mod, fn in saved:
+        def keep(*args, fn=fn):
+            seen.append(args)
+            return fn(*args)
+        mod._sharded_traceback = keep
+    try:
+        yield seen
+    finally:
+        for mod, fn in saved:
+            mod._sharded_traceback = fn
 
 
 def phase_kernels_inplace_forms(tag, rng, errs):
@@ -1711,12 +1799,13 @@ def drive_parallel(tag, rng):
         got, launches = parallel_case(
             tag, f"state-sharded ICE B={B_ICE} {kind} on state=4",
             lambda sym=sym: parallel.state_sharded_decode(VITERBI224, ice, sym, ICE_BYTES * 8, mesh),
-            ("sharded_acs_scan",), sw_check)
+            ("sharded_acs_scan", "sharded_traceback"), sw_check)
         add(launches)
         outs.append(got)
-        if launches["sharded_acs_scan"] != T_ice:
+        if launches["sharded_acs_scan"] != T_ice or launches["sharded_traceback"] != 1:
             raise SystemExit(f"FAIL: the state-sharded ICE decode launched the shard step "
-                             f"{launches['sharded_acs_scan']} times, not once a step ({T_ice})")
+                             f"{launches['sharded_acs_scan']} times, not once a step ({T_ice}), "
+                             f"and the walk {launches['sharded_traceback']} times, not once")
     want = unsharded_decode(VITERBI224, ice, noisy, ICE_BYTES * 8)
     errors, same = count_bit_errors(outs[0], data), bool(torch.equal(outs[1], want))
     print(f"[{tag}] parallel state-sharded ICE: bit errors {errors}, noisy equal to the unsharded "
@@ -1743,12 +1832,13 @@ def drive_parallel(tag, rng):
     got, launches = parallel_case(
         tag, f"state x time ICE {st_bytes}-byte frame on (state=4, time=2), overlap {OL}",
         lambda: parallel.state_time_decode(VITERBI224, ice, clean, st_bytes * 8, mesh, overlap=OL),
-        ("sharded_acs_scan",), st_check)
+        ("sharded_acs_scan", "sharded_traceback"), st_check)
     add(launches)
     steps = OL + (T_st + 1) // 2 + OL  # the warm-up, then the block and its halo
-    if launches["sharded_acs_scan"] != steps:
+    if launches["sharded_acs_scan"] != steps or launches["sharded_traceback"] != 1:
         raise SystemExit(f"FAIL: the state x time ICE decode launched the shard step "
-                         f"{launches['sharded_acs_scan']} times, not {steps}")
+                         f"{launches['sharded_acs_scan']} times, not {steps}, and the walk "
+                         f"{launches['sharded_traceback']} times, not once for both blocks")
     errors = count_bit_errors(got, data)
     same = bool(torch.equal(got, unsharded_decode(VITERBI224, ice, clean, st_bytes * 8)))
     print(f"[{tag}] parallel state x time ICE: bit errors {errors}, equal to the unsharded "
@@ -1791,7 +1881,9 @@ def phase_decode(tag, rng, errs):
     paths.append(drive_awgn(tag, rng, errs))
     paths.append(drive_parallel(tag, rng))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
-    zero = [name for name, n in launches.items() if n == 0]
+    # Every kernel of the kernels line; the walk's step kernel runs only where
+    # a state line spans processes, which no path of one card does.
+    zero = [name for name, n in launches.items() if n == 0 and name in REPLACES]
     if zero:
         raise SystemExit(f"FAIL: kernels {zero} were not launched on any path")
     return launches
@@ -2090,6 +2182,7 @@ def phase_timing_walk(tag, rows):
           f"ns = {lat_ms:.5f} ms ({100 * lat_ms / ms:.1f}% of the kernel's time); one fetch a "
           f"step would be {T * lat * 1e-6:.5f} ms; issued from Python {host:.4f} ms a call")
     torch.cuda.empty_cache()
+    return lat
 
 
 def u8_bound_ms(B, T, Tp, code, spiral) -> tuple[float, str]:
@@ -2154,11 +2247,60 @@ def shard_step_bound_ms(code, B) -> tuple[float, str]:
     return bound(4 * B * S + 4 * B * S + B * S // 8 + 4 * 4 * B * (1 << code.R), 6 * B * S)
 
 
-def phase_timing_shard(tag, rows):
+def sharded_walk_bound_ms(n, lines, B, T) -> tuple[float, str]:
+    """Least time of the walk by bytes and operations: one word a step, line
+    and frame (what the data needs), the end states, the [n, B, T] bytes
+    out; some 8 operations a step, line and frame (shard split, address,
+    fetch, extract, state update), and a store a step, shard and frame."""
+    return bound(4 * lines * B * T + 4 * n * B + n * B * T, 8 * lines * B * T + n * B * T)
+
+
+def phase_timing_walk_shard(tag, rows, lat):
+    """The walk alone on the words and end states of path 9's two ICE
+    tracebacks (``WALK_ICE``, from the comparisons), a replay of 50 launches
+    captured as a CUDA graph (``probe_walk.graph_ms``), beside its bound and
+    its latency bound (rounds of five steps x the dependent-load latency);
+    the plain version's time from the comparison.  Then the step kernel alone
+    (one launch, graph-replayed) and the step route from Python on the same
+    words."""
+    for key, label in (("sw", f"ICE B={B_ICE} on state=4"),
+                       ("st", f"ICE {ST_BYTES}-byte frame on (state=4, time=2)")):
+        (mesh, code, dec, end, base, n_local, axis), plain_ms = WALK_ICE.pop(key)
+        lines = mesh.lines_in_process(axis)
+        end = end.to(torch.int32).contiguous()
+        T, n, B, _ = dec.shape
+        ms = probe_walk.graph_ms(lambda: shard.sharded_walk(code, dec, end, lines, n_local), 50)
+        bnd = sharded_walk_bound_ms(n, len(lines), B, T)
+        rounds = probe_walk.walk_rounds(T)
+        lat_ms = rounds * lat * 1e-6
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+               "latency_bound_ms": lat_ms}
+        if key == "sw":  # the kernels line's row; state x time's under its key
+            rows["sharded_traceback"] = row
+        else:
+            rows["sharded_traceback"]["state_time"] = row
+        state, bit = end.clone(), torch.empty_like(end)
+        bits = torch.empty((n, B, T), dtype=torch.uint8, device="cuda")
+        coords = mesh.axis_coords(axis)
+        step_ms = probe_walk.graph_ms(lambda: shard.sharded_walk_step(
+            code, dec, T - 1, state, None, coords, n_local, bits, bit), 50)
+        steps_ms = timed_ms(lambda: statewise._walk_steps(mesh, code, dec, end, n_local, axis), 3)
+        print(f"[{tag}] sharded_traceback {label}, T={T}, {len(lines)} line(s) of {n // len(lines)} "
+              f"shards, B={B}: walk {ms:.5f} ms (one launch), plain {plain_ms:.4f} ms, bound "
+              f"{bnd[0]:.7f} ms ({bnd[1]}); latency bound {rounds} rounds of 5 steps x {lat:.2f} "
+              f"ns = {lat_ms:.5f} ms ({100 * lat_ms / ms:.1f}% of the walk's time); the step "
+              f"kernel alone {step_ms:.5f} ms a launch, the step route from Python "
+              f"{steps_ms:.4f} ms ({T} launches and in-process psums)")
+        del dec, end, state, bits
+    torch.cuda.empty_cache()
+
+
+def phase_timing_shard(tag, rows, lat):
     """The shard step alone at ICE B=8 on state=4, one card (every shard's
     launch on path 9's noisy symbols, its sources in place), by CUDA events;
-    the plain step (``_sharded_acs_scan_ref`` over one step) beside it; then
-    path 9's two ICE decodes, each split into its scans and its traceback."""
+    the plain step (``_sharded_acs_scan_ref`` over one step) beside it; the
+    walk alone (``phase_timing_walk_shard``); then path 9's two ICE decodes,
+    each split into its scans and its traceback, with the launches of one."""
     ice = soft8_spec(2)
     mesh = parallel.Mesh({"state": 4}, "cuda")
     base, s2_block, n_local = statewise._shard_geometry(VITERBI224, mesh, "state")
@@ -2186,6 +2328,7 @@ def phase_timing_shard(tag, rows):
     print(f"[{tag}] sharded_acs_scan ICE B={B_ICE} on state=4 (one card), one step: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
           f"{100 * bnd[0] / ms:.1f}% of bound")
+    phase_timing_walk_shard(tag, rows, lat)
     _, clean = noisy_symbols(ice, 1, np.random.default_rng(SEED), 0, VITERBI224, ST_BYTES)
     cases = (
         (f"state-sharded ICE B={B_ICE} on state=4", lambda: parallel.state_sharded_decode(
@@ -2194,7 +2337,11 @@ def phase_timing_shard(tag, rows):
          lambda st=parallel.Mesh({"state": 4, "time": 2}, "cuda"): parallel.state_time_decode(
              VITERBI224, ice, clean, ST_BYTES * 8, st, overlap=ST_OVERLAP)))
     for label, fn in cases:
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
         fn()  # warm
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+        print(f"[{tag}] {label}: launches a decode {json.dumps(launched)}")
         for _ in range(2):
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2223,7 +2370,8 @@ TB_KERNELS = ("acs_tb_warp_kernel", "acs_tb_block_kernel", "acs_tb2_block_kernel
 # Every kernel of the port's sources.
 PORT_KERNELS = PASS_KERNELS + TB_KERNELS + ("acs_inplace_warp_kernel", "acs_inplace_block_kernel",
                                             "chainback_kernel", "plane_walk_kernel",
-                                            "u8_warp_kernel", "sharded_acs_step_kernel")
+                                            "u8_warp_kernel", "sharded_acs_step_kernel",
+                                            "sharded_walk_kernel", "sharded_walk_step_kernel")
 
 
 def trace_launches(fn, names=PASS_KERNELS) -> dict[str, int]:
@@ -2439,12 +2587,12 @@ def main() -> int:
     phase_timing_large(tag, rng, rows)
     done("Cassini timing")
     quads = phase_timing_quad(tag, rng, rows)
-    phase_timing_walk(tag, rows)
+    lat = phase_timing_walk(tag, rows)
     done("ICE timing")
     phase_timing_u8(tag, rows)
     done("u8 replica timing")
-    phase_timing_shard(tag, rows)
-    done("shard step timing")
+    phase_timing_shard(tag, rows, lat)
+    done("shard step and walk timing")
     phase_timing_tb2(tag, rng, rows)
     done("depth-2 and phase_fns timing")
     phase_launch_trace(tag, rng, quads)

@@ -1,14 +1,22 @@
-// One trellis step of the state-sharded butterfly on Hopper (sm_90a), bound to
-// Python with ctypes through the extern "C" launcher at the end of this file.
+// The state-sharded decode on Hopper (sm_90a): its trellis step and its
+// traceback, bound to Python with ctypes through the extern "C" launchers at
+// the end of this file.
 //
 //   sharded_acs_step_kernel   one step of the jnp scan of parallel/statewise.py
 //                             _sharded_acs_scan (the JAX package's line 90), for
 //                             every local target shard and every frame
+//   sharded_walk_kernel       the whole traceback of parallel/statewise.py
+//                             _sharded_traceback (the JAX package's lax.scan at
+//                             lines 120-137) where every state line lies in
+//                             this process: a warp a (line, frame)
+//   sharded_walk_step_kernel  one step of it where a line spans processes: the
+//                             owner's bit, summed by the caller's psum
 //
-// It replaces no Pallas kernel: the JAX package runs the scan as jnp inside a
-// shard_map, fused by XLA.  The wrapper is ops/cuda/shard.py; the plain
-// version, a round of PyTorch operations a step, is parallel/statewise.py
-// _sharded_acs_scan_ref.  The exchange between steps stays outside: in one
+// They replace no Pallas kernel: the JAX package runs the scan and the
+// traceback as jnp inside a shard_map, fused by XLA.  The wrapper is
+// ops/cuda/shard.py; the plain versions, rounds of PyTorch operations a
+// step, are parallel/statewise.py _sharded_acs_scan_ref and
+// _sharded_traceback_ref.  The exchange between steps stays outside: in one
 // process the launcher is handed each target's source chunks where they lie
 // (halves of the old metrics), across processes the buffers that NCCL
 // received them into (parallel/mesh.py ppermute_sources).
@@ -125,6 +133,111 @@ sharded_acs_step_kernel(const ShardTargets tg, const ShardCode cd, const int* __
   }
 }
 
+// ---------------------------------------------------------------------------
+// The traceback over the scan's words.  For each state line (the local shards
+// that share every coordinate but the state axis's; line[d] is the local index
+// of the line's shard d) and frame b: from s = end[line[0], b], for t = T-1
+// down to 0, the decision of state s at step t is bit s & 31 of word
+// dec[t, line[s >> lg], b, (s & (2^lg - 1)) >> 5] (2^lg = S / n_state states a
+// shard, a power of two: a shift and a mask, no division), and s becomes
+// (s >> 1) | (k << (K-2)).  k is written to bits[line[q], b, t] for every shard
+// q of the line: the [n, B, T] bits of the plain version, where every shard of
+// a line holds the line's bits.
+//
+// What bounds it: T dependent fetches a (line, frame), each a word of a 2^16-
+// word row at ICE, so a chain of load latencies; its bytes and operations are
+// nothing.  The design is chainback_kernel<false, 0>'s (viterbi_small.cu): a
+// warp a (line, frame); lane L, with L + 1 = 1 k_0 .. k_{d-1} in binary,
+// fetches the word of the state d steps back that the decisions k_0.. lead to
+// (the shard split applied to the candidate's address) and extracts its bit;
+// one ballot hands the 31 bits to every lane, and up to five steps resolve in
+// registers: one round trip to device memory for five steps, 18 rounds at ICE
+// (T = 87), 73 for state x time's 364-step blocks.  Words are read where the
+// scan wrote them ([T, n, B, W], 64-bit strides: 87 x 4 x 8 x 65536 words at
+// ICE B=8); the line table comes by value.
+// ---------------------------------------------------------------------------
+constexpr int kWalkFrames = 8;  // (line, frame) warps a block
+constexpr int kWalkDepth = 5;   // steps a round
+
+struct WalkLines {
+  int shard[kMaxTargets];  // shard[l * n_state + d]: local index of shard d of line l
+};
+
+__global__ void __launch_bounds__(kWalkFrames * 32)
+sharded_walk_kernel(const int* __restrict__ dec, long long st, long long sn, long long sb,
+                    const int* __restrict__ end, unsigned char* __restrict__ bits,
+                    const WalkLines ln, int n_lines, int n_state, int lg, int K, int B, int T) {
+  const int lane = threadIdx.x & 31;
+  const int wid = blockIdx.x * kWalkFrames + (threadIdx.x >> 5);
+  if (wid >= n_lines * B) return;  // whole warps
+  const int l = wid / B, b = wid - l * B;
+  const int* line = ln.shard + l * n_state;
+  const int nrot = K - 1, lmask = (1 << lg) - 1;
+  const int depth = min(kWalkDepth, nrot);  // a candidate d steps back needs d <= K-1
+  int pos = end[(long long)line[0] * B + b] & ((1 << nrot) - 1);
+  // This lane's candidate: d steps back on the decisions cb (lane 31: none).
+  const int d = 31 - __clz(lane + 1);
+  const int cb = d ? (int)(__brev((unsigned)(lane + 1) ^ (1u << d)) >> (32 - d)) : 0;
+  for (int t = T - 1; t >= 0;) {
+    const int n = min(depth, t + 1);
+    int kc = 0;
+    if (d < n) {
+      const int cand = (pos >> d) | (cb << (nrot - d));
+      const int loc = cand & lmask;
+      const unsigned word = (unsigned)__ldg(dec + (t - d) * st + line[cand >> lg] * sn + b * sb +
+                                            (loc >> 5));
+      kc = (word >> (loc & 31)) & 1;
+    }
+    const unsigned bal = __ballot_sync(kFull, kc);
+    unsigned node = 0;
+#pragma unroll
+    for (int e = 0; e < kWalkDepth; ++e)
+      if (e < n) node = 2 * node + 1 + ((bal >> node) & 1);
+    // node + 1 = 1 k_0 .. k_{n-1}: bit i of path is the decision of step t - n + 1 + i.
+    const unsigned path = (node + 1) ^ (1u << n);
+    if (lane < n) {
+      const unsigned char k = (path >> lane) & 1;
+      for (int q = 0; q < n_state; ++q)
+        bits[((long long)line[q] * B + b) * T + t - n + 1 + lane] = k;
+    }
+    pos = (pos >> n) | ((int)(__brev(path) >> (32 - n)) << (nrot - n));
+    t -= n;
+  }
+}
+
+// One step t of the traceback for every local shard j and frame b (thread j B
+// + b), as the plain version's step: the state first takes the previous step's
+// sum ksum (null at t = T-1), which is also that step's bit; then the shard's
+// own decision bit of the state, 0 where another shard owns it, goes to
+// bit_out for the caller's psum.  The state and the sums stay on the card.
+struct WalkCoords {
+  int c[kMaxTargets];  // each local shard's coordinate along the state axis
+};
+
+__global__ void sharded_walk_step_kernel(const int* __restrict__ dec, long long st, long long sn,
+                                         long long sb, int* __restrict__ state,
+                                         const int* __restrict__ ksum,
+                                         unsigned char* __restrict__ bits, int* __restrict__ bit_out,
+                                         const WalkCoords cs, int n, int lg, int K, int B, int T,
+                                         int t) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * B) return;
+  const int j = idx / B, b = idx - j * B;
+  int s = state[idx];
+  if (ksum != nullptr) {
+    const int k = ksum[idx];
+    bits[(long long)idx * T + t + 1] = (unsigned char)k;
+    s = (s >> 1) | (k << (K - 2));
+    state[idx] = s;
+  }
+  int k = 0;
+  if ((s >> lg) == cs.c[j]) {  // the plain version's 0 <= s - base_j < 2^lg
+    const int loc = s & ((1 << lg) - 1);
+    k = ((unsigned)dec[t * st + j * sn + b * sb + (loc >> 5)] >> (loc & 31)) & 1;
+  }
+  bit_out[idx] = k;
+}
+
 }  // namespace
 
 extern "C" {
@@ -157,6 +270,45 @@ int viterbi_shard_step(const long long* lo, const long long* lo_bs, const long l
   const int W = (int)((2 * chunk + 31) / 32);
   sharded_acs_step_kernel<<<dim3((unsigned)blocks, B, n), kShardThreads, 0, (cudaStream_t)stream>>>(
       tg, cd, (const int*)table, (int*)m_out, (int*)dec, B, T, t, chunk, W);
+  return (int)cudaGetLastError();
+}
+
+// The whole traceback over the words dec (element (t, j, b, w) at t st + j sn
+// + b sb + w) from end [n, B] (contiguous) into bits [n, B, T] uint8
+// (contiguous): n_lines lines of n_state local shards, line_shards their
+// n_lines * n_state local indices, line-major; 2^lg states a shard.
+int viterbi_shard_walk(const void* dec, long long st, long long sn, long long sb, const void* end,
+                       void* bits, const int* line_shards, int n_lines, int n_state, int lg, int K,
+                       int B, int T, void* stream) {
+  if (n_lines < 1 || n_state < 1 || n_lines * n_state > kMaxTargets || K < 2 || K > 32 ||
+      lg < 0 || B < 1 || T < 1 || (long long)n_lines * B > 0x7fffffffLL - kWalkFrames)
+    return (int)cudaErrorInvalidValue;
+  WalkLines ln;
+  for (int i = 0; i < n_lines * n_state; ++i) ln.shard[i] = line_shards[i];
+  const int warps = n_lines * B;
+  sharded_walk_kernel<<<(warps + kWalkFrames - 1) / kWalkFrames, kWalkFrames * 32, 0,
+                        (cudaStream_t)stream>>>((const int*)dec, st, sn, sb, (const int*)end,
+                                                (unsigned char*)bits, ln, n_lines, n_state, lg, K,
+                                                B, T);
+  return (int)cudaGetLastError();
+}
+
+// Step t of the traceback for n local shards of B frames: state [n, B] int32
+// (updated in place), ksum [n, B] int32 or null, bits [n, B, T] uint8, bit_out
+// [n, B] int32, all contiguous; coords: n host entries.
+int viterbi_shard_walk_step(const void* dec, long long st, long long sn, long long sb,
+                            void* state, const void* ksum, void* bits, void* bit_out,
+                            const int* coords, int n, int lg, int K, int B, int T, int t,
+                            void* stream) {
+  if (n < 1 || n > kMaxTargets || K < 2 || K > 32 || lg < 0 || B < 1 || t < 0 || t >= T ||
+      (ksum != nullptr && t + 1 >= T) || (long long)n * B > 0x7fffffffLL - 256)
+    return (int)cudaErrorInvalidValue;
+  WalkCoords cs;
+  for (int j = 0; j < n; ++j) cs.c[j] = coords[j];
+  const int threads = 256, blocks = (n * B + threads - 1) / threads;
+  sharded_walk_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)dec, st, sn, sb, (int*)state, (const int*)ksum, (unsigned char*)bits,
+      (int*)bit_out, cs, n, lg, K, B, T, t);
   return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,11 @@ analytic model's prediction at the H100 figures (``harness/comms.py``), and
 the collectives that rank 0 counted.  Rank 0 traces one noisy time-block
 run and one state-sharded run (device time by operation, the trace under
 ``chiprun_out/``), and splits one state-sharded and one state x time run
-into scan and traceback by CUDA events.  Results also go to ``chiprun_out/probe_parallel.json``.
+into scan and traceback by CUDA events; it also traces one state x time run
+and counts, in each traced decode, the host's ``cudaStreamSynchronize``
+calls and copies from pageable memory, and the kernel launches of a decode
+(the traceback's step kernel once a step: its state lines span the ranks).
+Results also go to ``chiprun_out/probe_parallel.json``.
 
 ``--device cpu`` runs the same program on gloo in CPU processes at small
 sizes (K=7 64-byte frames, VITERBI29 in place of ICE, a 32-byte frame and
@@ -129,12 +133,14 @@ def _phase_split(fn, device) -> tuple[float, float]:
 
 def _profile(fn, rank, log_dir, label):
     """One run of ``fn`` on every rank, rank 0's traced: its device time by
-    operation and its host-side waits, beside the run's span."""
+    operation and its host-side waits, beside the run's span.  Returns rank
+    0's count of ``cudaStreamSynchronize`` calls and of copies from pageable
+    host memory (each of which waits for the stream), else None."""
     dist.barrier()
     if rank != 0:
         fn()
         torch.cuda.synchronize()
-        return
+        return None
     with profiling.device_trace(str(log_dir)) as prof:
         t0 = time.perf_counter()
         fn()
@@ -148,10 +154,22 @@ def _profile(fn, rank, log_dir, label):
     busy = sorted(rows, key=dev, reverse=True)[:8]
     host = {e.key: e.count for e in rows
             if any(w in e.key for w in ("Synchronize", "Memcpy", "LaunchKernel", "nccl"))}
+    waits = {"stream_syncs": sum(n for k, n in host.items() if "StreamSynchronize" in k),
+             "pageable_copies": sum(n for k, n in host.items() if "Pageable" in k)}
     print(f"trace of one {label} run on rank 0: span {1e3 * span:.4f} ms, device time "
           f"{sum(dev(e) for e in rows) / 1e3:.4f} ms; by operation (ms, calls): "
           + "; ".join(f"{e.key[:60]} {dev(e) / 1e3:.4f} x{e.count}" for e in busy if dev(e))
-          + f"; host calls {json.dumps(host)}", flush=True)
+          + f"; host calls {json.dumps(host)}; {json.dumps(waits)}", flush=True)
+    return waits
+
+
+def _launches(fn) -> dict[str, int]:
+    """The kernel launches of one more run of ``fn`` on every rank, by
+    counter (this rank's)."""
+    dist.barrier()
+    before = dict(_build.LAUNCHES)
+    fn()
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
 
 
 def _gather(x: torch.Tensor) -> list[torch.Tensor]:
@@ -283,8 +301,10 @@ def main(argv=None) -> int:
         sw_run = lambda: state_sharded_decode(ice, numeric, sym.to(device), ice_bytes * 8,  # noqa: E731
                                               mesh)
         sw_split = _phase_split(sw_run, device)
-        _profile(sw_run, rank, pathlib.Path(args.out).parent / "probe_parallel_trace_state",
-                 "state-sharded decode")
+        sw_waits = _profile(sw_run, rank,
+                            pathlib.Path(args.out).parent / "probe_parallel_trace_state",
+                            "state-sharded decode")
+        sw_launches = _launches(sw_run)
     parts = _gather(out)
     if rank == 0:
         whole = sym.to(device)
@@ -326,9 +346,12 @@ def main(argv=None) -> int:
             say(f"state sharding: a send's copy of a strided half ({half.numel() * 4} bytes) "
                 f"{copy_ms:.4f} ms, two a step and rank: {2 * copy_ms * T_ice:.4f} ms a decode of "
                 f"{1e3 * t_n:.4f}; {1e3 * t_n / T_ice:.4f} ms a step over {world} ranks; one "
-                f"more run on rank 0: scan {sw_split[0]:.4f} ms, traceback {sw_split[1]:.4f} ms")
+                f"more run on rank 0: scan {sw_split[0]:.4f} ms, traceback {sw_split[1]:.4f} ms "
+                f"({sw_split[1] / T_ice:.4f} ms a step); launches a decode "
+                f"{json.dumps(sw_launches)}")
             record["state_sharded"].update(send_copy_ms=copy_ms, scan_ms=sw_split[0],
-                                           traceback_ms=sw_split[1])
+                                           traceback_ms=sw_split[1], waits=sw_waits,
+                                           launches=sw_launches)
 
     # -- state x time -------------------------------------------------------------------
     # One frame, padded to the time axis; each rank holds one (state, time) shard.
@@ -344,6 +367,9 @@ def main(argv=None) -> int:
     bits, t_n = _timed(run, device)
     counted, wire = report(run)
     st_split = _phase_split(run, device) if on_card else (float("nan"),) * 2
+    st_waits = (_profile(run, rank, pathlib.Path(args.out).parent / "probe_parallel_trace_st",
+                         "state x time decode") if on_card else None)
+    st_launches = _launches(run) if on_card else None
     parts = _gather(bits)
     if rank == 0:
         # Rank r holds (state r // n_time, time r % n_time); every state rank of a block agrees.
@@ -369,11 +395,13 @@ def main(argv=None) -> int:
             f"scaling efficiency {eff:.4f} (model {model['predicted_efficiency']:.4f}); bytes "
             f"equal to the unsharded decode and to the one-card run {same}, differing bytes "
             f"{errors}; collectives {counted}, {wire} wire bytes; one more run on rank 0: scans "
-            f"{st_split[0]:.4f} ms, traceback {st_split[1]:.4f} ms")
+            f"{st_split[0]:.4f} ms, traceback {st_split[1]:.4f} ms; launches a decode "
+            f"{json.dumps(st_launches)}")
         record["state_time"] = {"sharded_s": t_n, "one_card_s": t_1, "kernel_decode_s": t_k,
                                 "efficiency": eff, "model": model, "equal": same,
                                 "collectives": counted, "scan_ms": st_split[0],
-                                "traceback_ms": st_split[1]}
+                                "traceback_ms": st_split[1], "waits": st_waits,
+                                "launches": st_launches}
         record["ok"] = bool(ok)
         if on_card:
             path = pathlib.Path(args.out)

@@ -54,6 +54,8 @@ LAUNCHES: dict[str, int] = {
     "quantized_update": 0,
     "spiral_update": 0,
     "sharded_acs_scan": 0,
+    "sharded_traceback": 0,
+    "sharded_traceback_step": 0,
 }
 
 _P = ctypes.c_void_p
@@ -80,6 +82,8 @@ _SIGNATURES = {
     "viterbi_chase": (_P, _I, _P, _P),
     "viterbi_u8": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_shard_step": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _L, _P),
+    "viterbi_shard_walk": (_P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_shard_walk_step": (_P, _L, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _build_seconds: list[float] = []

@@ -26,6 +26,8 @@ kernel that reads its operands where they lie.
 Counting.  Every collective goes through ``_record``, which appends one
 ``CollectiveCall`` to each list opened by ``recording()``;
 ``harness.comms.collective_trace`` turns them into a report.
+``record_psums`` records the ``psum``s of a kernel that does their work
+inside one process and issues none.
 """
 
 from __future__ import annotations
@@ -328,43 +330,69 @@ class Mesh:
 
     def _local_lines(self, axis: str):
         """The reduction groups of ``axis`` that hold a shard of this process:
-        for each, a selector of its local shards, and the ranks it spans;
-        and the group of each local shard."""
+        for each, a selector of its local shards; the group of each local
+        shard; and the rows of each set of ranks that a group spans, by rank
+        set.  A selector is a slice where its indices are adjacent, else an
+        index tensor on the mesh's device, so that applying one copies
+        nothing from the host (a copy from host memory waits for the
+        stream)."""
         key = ("local_lines", axis)
         if key not in self._cache:
             lines = [ln for ln in self._lines(axis) if any(self.owner(s) == self.rank for s in ln)]
-            members, ranksets, line_of = [], [], [0] * self.n_local
+            members, rows, line_of = [], {}, [0] * self.n_local
             for i, line in enumerate(lines):
                 local = [s - self.first for s in line if self.owner(s) == self.rank]
                 for j in local:
                     line_of[j] = i
-                adjacent = local == list(range(local[0], local[-1] + 1))
-                members.append(slice(local[0], local[-1] + 1) if adjacent
-                               else torch.tensor(local, dtype=torch.long, device=self.device))
-                ranksets.append(tuple(sorted({self.owner(s) for s in line})))
-            self._cache[key] = (members, ranksets,
-                                torch.tensor(line_of, dtype=torch.long, device=self.device))
+                members.append(self._selector(local))
+                rows.setdefault(tuple(sorted({self.owner(s) for s in line})), []).append(i)
+            self._cache[key] = (members, torch.tensor(line_of, dtype=torch.long, device=self.device),
+                                {rs: self._selector(r) for rs, r in rows.items()})
         return self._cache[key]
 
+    def _selector(self, idx: list[int]):
+        if idx == list(range(idx[0], idx[-1] + 1)):
+            return slice(idx[0], idx[-1] + 1)
+        return torch.tensor(idx, dtype=torch.long, device=self.device)
+
+    def lines_in_process(self, axis: str) -> list[list[int]] | None:
+        """The reduction groups of ``axis`` that this process holds, each as
+        its local shard indices in axis order, where no group of the mesh
+        spans processes; None where one does (each process then takes part in
+        every reduction of that group, so a reduction has to be issued)."""
+        lines = self._lines(axis)
+        if any(self.owner(s) != self.owner(line[0]) for line in lines for s in line):
+            return None
+        return [[s - self.first for s in line] for line in lines if self.owner(line[0]) == self.rank]
+
     def _reduce(self, x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
-        members, ranksets, line_of = self._local_lines(axis)
+        members, line_of, rows_of = self._local_lines(axis)
         red = torch.stack([x[m].sum(0, dtype=x.dtype) if op == "sum" else x[m].amin(0)
                            for m in members])
         if self.world > 1:
             for rs, group in self._process_groups(axis).items():
-                rows = [i for i, r in enumerate(ranksets) if r == rs]
-                if not rows:
+                rows = rows_of.get(rs)
+                if rows is None:
                     continue
-                buf = red[rows].contiguous()
+                buf = red[rows].contiguous()  # a slice of rows of red: a view, reduced in place
                 dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN,
                                 group=group)
-                red[rows] = buf
+                if not isinstance(rows, slice):
+                    red[rows] = buf
         return red[line_of]
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.psum`` over ``axis``: every shard of a group gets the group's sum."""
         self._record("psum", x, 1, (axis,))
         return self._reduce(x, axis, "sum")
+
+    def record_psums(self, x: torch.Tensor, axis: str, steps: int) -> None:
+        """Record ``steps`` calls of ``psum(x, axis)`` and issue none: the
+        logical collectives of a kernel that does their work inside one
+        process (as ``ppermute_sources`` records the moves it leaves in
+        place)."""
+        for _ in range(steps):
+            self._record("psum", x, 1, (axis,))
 
     def pmin(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.pmin`` over ``axis``."""
@@ -377,6 +405,8 @@ class Mesh:
         self._record("all_gather", x, 1, (axis,))
         placed = torch.zeros((x.shape[0], self.shape[axis], *x.shape[1:]), dtype=x.dtype,
                              device=x.device)
-        coords = torch.tensor(self.axis_coords(axis), dtype=torch.long, device=x.device)
-        placed[torch.arange(x.shape[0], device=x.device), coords] = x
+        key = ("coords", axis)
+        if key not in self._cache:
+            self._cache[key] = self.axis_index(axis).to(torch.long)
+        placed[torch.arange(x.shape[0], device=x.device), self._cache[key]] = x
         return self._reduce(placed, axis, "sum")

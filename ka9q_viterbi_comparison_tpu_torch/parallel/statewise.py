@@ -27,15 +27,21 @@ is read with a gather and summed over the shards with one ``psum`` of
 ``[B]`` int32 (the JAX module's ``psum`` of a one-hot selection; the bits
 are equal).
 
-The JAX module's scan is ``jnp`` with no Pallas kernel behind it.  Here the
-scan takes its route by device (``_on_kernel``): on a CUDA device one launch
-a step of ``sharded_acs_step_kernel`` (``ops/cuda/shard.py``) for every
-local shard and frame, each target's old metrics read where the exchange
-left them (``Mesh.ppermute_sources``: halves of the local shards in place,
-buffers that NCCL filled across processes), the penalty index computed in
-the kernel; on the CPU the plain version ``_sharded_acs_scan_ref``, a round
-of PyTorch operations a step.  The traceback is PyTorch operations either
-way.
+The JAX module's scan and traceback are ``jnp`` with no Pallas kernel
+behind them.  Here each takes its route by device.  The scan
+(``_on_kernel``): on a CUDA device one launch a step of
+``sharded_acs_step_kernel`` (``ops/cuda/shard.py``) for every local shard
+and frame, each target's old metrics read where the exchange left them
+(``Mesh.ppermute_sources``: halves of the local shards in place, buffers
+that NCCL filled across processes), the penalty index computed in the
+kernel.  The traceback (``_walk_on_kernel``): on a CUDA device where every
+state line lies in this process, one launch of ``sharded_walk_kernel`` for
+the whole decode, the words walked where they lie and the ``psum`` a step
+recorded (``Mesh.record_psums``); where a line spans processes, one launch
+of ``sharded_walk_step_kernel`` and the ``psum`` a step, the state and the
+sums left on the card.  On the CPU both are the plain versions,
+``_sharded_acs_scan_ref`` and ``_sharded_traceback_ref``, rounds of PyTorch
+operations a step.
 """
 
 from __future__ import annotations
@@ -227,12 +233,57 @@ def _sharded_acs_scan_ref(mesh: Mesh, code: CodeSpec, numeric: NumericSpec,
     return m, dec
 
 
+def _walk_on_kernel(device: torch.device) -> bool:
+    """The route of ``_sharded_traceback``: the walk kernels on a CUDA device
+    (a predicate of its own, so that each route can be pinned alone)."""
+    return device.type == "cuda"
+
+
 def _sharded_traceback(mesh: Mesh, code: CodeSpec, dec: torch.Tensor, end: torch.Tensor,
                        base: torch.Tensor, n_local: int, state_axis: str) -> torch.Tensor:
     """Serial traceback over the state-sharded packed decisions ``[T, n, B,
-    W]`` from end states ``[n, B]``; each step the owner's bit is gathered
-    and summed over the shards with one ``psum`` of ``[B]`` int32.  Returns
-    bits ``[n, B, T]`` uint8."""
+    W]`` from end states ``[n, B]`` (alike along a state line).  Returns bits
+    ``[n, B, T]`` uint8.  On the CPU the plain version; on a CUDA device
+    where every state line lies in this process, one launch of the walk
+    kernel for the whole traceback, the JAX module's ``psum`` a step
+    recorded and issued by none; where a line spans processes, a step
+    kernel and the ``psum`` a step (``_walk_steps``)."""
+    if not _walk_on_kernel(dec.device):
+        return _sharded_traceback_ref(mesh, code, dec, end, base, n_local, state_axis)
+    lines = mesh.lines_in_process(state_axis)
+    if lines is None:
+        return _walk_steps(mesh, code, dec, end, n_local, state_axis)
+    end = end.to(torch.int32).contiguous()
+    bits = shard.sharded_walk(code, dec, end, lines, n_local)
+    mesh.record_psums(end, state_axis, dec.shape[0])
+    return bits
+
+
+def _walk_steps(mesh: Mesh, code: CodeSpec, dec: torch.Tensor, end: torch.Tensor, n_local: int,
+                state_axis: str) -> torch.Tensor:
+    """The traceback a step at a time, for state lines that span processes:
+    one launch of the step kernel (the state update from the previous
+    step's sum, the owner test, the word and the bit, the previous bit into
+    the output) and one ``psum`` of ``[B]`` int32 a step.  The state and the
+    sums stay on the card: nothing waits for the host."""
+    T, n, B, _ = dec.shape
+    state = end.to(torch.int32, copy=True).contiguous()
+    bits = torch.empty((n, B, T), dtype=torch.uint8, device=dec.device)
+    bit = torch.empty_like(state)
+    coords = mesh.axis_coords(state_axis)
+    k = None
+    for t in range(T - 1, -1, -1):
+        shard.sharded_walk_step(code, dec, t, state, k, coords, n_local, bits, bit)
+        k = mesh.psum(bit, state_axis)
+    bits[:, :, 0] = k
+    return bits
+
+
+def _sharded_traceback_ref(mesh: Mesh, code: CodeSpec, dec: torch.Tensor, end: torch.Tensor,
+                           base: torch.Tensor, n_local: int, state_axis: str) -> torch.Tensor:
+    """The plain version of ``_sharded_traceback``: each step the owner's
+    bit is gathered and summed over the shards with one ``psum`` of ``[B]``
+    int32, in PyTorch operations.  Returns bits ``[n, B, T]`` uint8."""
     K = code.K
     T = dec.shape[0]
     state = end.to(torch.int32)
