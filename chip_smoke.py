@@ -91,6 +91,13 @@ counts zeroed just before it and read just after:
   its launches.  One card runs every shard, so the times are the shard
   plumbing's cost, not scaling.
 
+After the paths, the in-place envelope's canary of ``harness/hw_check.py``
+(``envelope_row``): VITERBI615 soft8 256-byte noiseless frames at B=512 on
+the ``cuda`` backend, which the port keeps on the in-place pair where the
+JAX package leaves it (``ROADMAP.md`` section 3): the route, 0 bit errors,
+one in-place block's shared memory against the card's opt-in limit, its
+launches and its time.  It is held to the data, so it has no plain run.
+
 Then it times the kernels and the decoders' phases with CUDA events (the
 two K > 15 walks beside their latency bound: dependent fetches a frame times
 the card's dependent-load latency, measured by ``harness.probe_walk``, in
@@ -149,6 +156,7 @@ from ka9q_viterbi_comparison_tpu_torch.harness import (  # noqa: E402
     ber_curve,
     check_results,
     comms,
+    hw_check,
     probe_tb,
     profiling,
     probe_walk,
@@ -1889,6 +1897,22 @@ def phase_decode(tag, rng, errs):
     return launches
 
 
+def phase_canary(tag, rng):
+    """The in-place envelope's canary at B=512 (``hw_check.envelope_row``):
+    Cassini noiseless frames through ``ViterbiDecoder(backend="cuda")`` on the
+    in-place pair, held to the data."""
+    row = hw_check.envelope_row(rng, 512)
+    print(f"[{tag}] canary K=15 soft8 {row['frame_bytes']}-byte frames B={row['batch']}: "
+          f"in-place route {row['routed_inplace']}, bit errors {row['bit_errors']}, shared memory "
+          f"{row['smem_bytes']} of {row['smem_optin_bytes']} B a block, launches "
+          f"{json.dumps(row['launches'])}, {row['seconds'] * 1e3:.2f} ms a decode")
+    if (row["bit_errors"] or not row["routed_inplace"]
+            or not row["launches"].get("acs_update_inplace")
+            or not row["launches"].get("chainback_inplace")):
+        raise SystemExit("FAIL: the in-place canary at K=15 B=512")
+    torch.cuda.empty_cache()
+
+
 def compared_args(name, key=None):
     """The inputs on which ``name`` was held against its plain version at the
     shape of its timing row ``key``."""
@@ -2582,6 +2606,8 @@ def main() -> int:
     done("in-place forms comparisons")
     launches = phase_decode(tag, rng, errs)
     done("the nine paths")
+    phase_canary(tag, rng)
+    done("the in-place canary at K=15 B=512")
     rows = phase_timing(tag, rng)
     done("K=7 and K=9 timing")
     phase_timing_large(tag, rng, rows)

@@ -11,21 +11,40 @@ and the list of losing cells -- comes from ``check_results`` on the same
 rows.  ``render`` raises unless the matrix passes ``check_results``, and
 ``tests/test_torch_results_quality.py`` pins the checked-in file to
 ``render`` of the checked-in JSON, so no claim in it is written by hand.
-Plots are not made (``--no-plots`` is the only mode).
+
+Then, as the JAX tool does, it runs ``scripts/plot_data.py`` unchanged on the
+same JSON, normalised to the ``gpu_torch`` column (the portable path, the
+counterpart of the JAX tool's ``tpu_jnp``), and keeps its two charts as
+``docs/plot_torch_symbol_update.png`` and ``docs/plot_torch_chainback.png``
+(under the working directory, as ``--out``): the script writes fixed names,
+which are the JAX package's plots, so it writes into a temporary directory
+and the files are renamed.
+The plots need matplotlib and no card; ``--no-plots`` skips them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
 
 import numpy as np
 
 from . import bench, check_results
 
-__all__ = ["fmt", "si_scale", "tables", "render", "main", "TITLE"]
+__all__ = ["fmt", "si_scale", "tables", "render", "plots", "main", "TITLE", "PLOTS",
+           "PLOT_BASELINE"]
 
 TITLE = "# Results — "
+PLOT_SCRIPT = Path(__file__).resolve().parents[2] / "scripts" / "plot_data.py"
+PLOT_BASELINE = "gpu_torch"
+# The files plot_data.py writes -> the port's names for them.
+PLOTS = {"plot_symbol_update.png": "plot_torch_symbol_update.png",
+         "plot_chainback.png": "plot_torch_chainback.png"}
 _SI = [(1e12, "T"), (1e9, "G"), (1e6, "M"), (1e3, "k"), (1.0, "")]
 
 
@@ -200,7 +219,36 @@ fails any matrix where a `gpu_cuda*` cell drops below 1.00x.
         vs_section += ("\nEvery `gpu_*` cell beats its comparison column (generated from the "
                        "data).\n")
 
-    return header + tables(filename) + vs_section
+    plot_section = f"""
+## Plots
+
+Drawn from the same JSON by `scripts/plot_data.py` through
+`harness/make_results.py`: each family's mean rate over the
+`{PLOT_BASELINE}` cell of its (K, R) (the portable path), error bars the
+std, titled with the card.
+
+![Update symbol rate over {PLOT_BASELINE}](docs/{PLOTS["plot_symbol_update.png"]})
+
+![Chainback bit rate over {PLOT_BASELINE}](docs/{PLOTS["plot_chainback.png"]})
+"""
+
+    return header + tables(filename) + vs_section + plot_section
+
+
+def plots(filename: str, chip_name: str, plot_dir: str = "docs") -> list[str]:
+    """Run ``scripts/plot_data.py`` on ``filename`` (as a script: it imports
+    its neighbours) into a temporary directory inside ``plot_dir`` and move
+    its two charts to ``plot_dir`` under ``PLOTS``' names; returns their
+    paths."""
+    os.makedirs(plot_dir, exist_ok=True)
+    out = []
+    with tempfile.TemporaryDirectory(dir=plot_dir) as tmp:
+        subprocess.run([sys.executable, str(PLOT_SCRIPT), filename, "--chip-name", chip_name,
+                        "--baseline", PLOT_BASELINE, "--out-dir", tmp], check=True)
+        for src, dst in PLOTS.items():
+            out.append(os.path.join(plot_dir, dst))
+            os.replace(os.path.join(tmp, src), out[-1])
+    return out
 
 
 def main(argv=None) -> None:
@@ -211,11 +259,14 @@ def main(argv=None) -> None:
                         "--query-gpu=name,power.limit --format=csv,noheader prints them")
     p.add_argument("--out", default="RESULTS_TORCH.md")
     p.add_argument("--no-plots", action="store_true",
-                   help="the only mode: no plots are made")
+                   help="write RESULTS_TORCH.md only (for a machine without matplotlib)")
     args = p.parse_args(argv)
     with open(args.out, "w") as f:
         f.write(render(args.filename, args.chip_name))
     print(f"wrote {args.out}")
+    if not args.no_plots:
+        for path in plots(args.filename, args.chip_name):
+            print(f"wrote {path}")
 
 
 if __name__ == "__main__":

@@ -58,20 +58,27 @@ from .. import acs, radix_planes as rp
 from . import flags, inplace, kernels, kernels2, large_k2, large_k4, walk
 
 __all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace", "supports",
-           "supports_chainback", "fits_shared", "unpack_bit_words", "walk_bits", "walk_bytes"]
+           "supports_chainback", "shared_cap", "fits_shared", "unpack_bit_words", "walk_bits",
+           "walk_bytes"]
+
+
+def shared_cap(device: torch.device) -> int | None:
+    """The shared memory a block of the card of ``device`` may opt in to
+    (``torch.cuda.get_device_properties``); None off a card."""
+    if device.type != "cuda":
+        return None
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", props.shared_memory_per_block)
 
 
 def fits_shared(code: CodeSpec, device: torch.device) -> bool:
     """Whether one in-place ACS block's shared memory
     (``inplace.inplace_smem_bytes``: what the launcher in the source asks for)
-    fits the card of ``device`` (``torch.cuda.get_device_properties``; the
-    block also needs at most 1024 threads, which the launcher never exceeds).
-    The plain versions that serve CPU tensors have no such limit."""
-    if device.type != "cuda":
-        return True
-    props = torch.cuda.get_device_properties(device)
-    cap = getattr(props, "shared_memory_per_block_optin", props.shared_memory_per_block)
-    return inplace.inplace_smem_bytes(code) <= cap
+    fits the card of ``device`` (``shared_cap``; the block also needs at most
+    1024 threads, which the launcher never exceeds).  The plain versions that
+    serve CPU tensors have no such limit."""
+    cap = shared_cap(device)
+    return cap is None or inplace.inplace_smem_bytes(code) <= cap
 
 
 def supports(code: CodeSpec) -> bool:
