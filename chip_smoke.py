@@ -18,7 +18,10 @@ and 9, an inverted SPIRAL polynomial, batches 1, 33 and 130, random entry
 metrics and all-noise symbols on which SPIRAL's renormalisation fires; the
 state-sharded trellis step, ``sharded_acs_scan``, at K=9 on state 2, 4 and 8
 and K=15 and K=17 on state 4, batches 1, 3 and 8, with and without words,
-from entry metrics within 600 of the int32 limit, and at ICE: the first 3
+from entry metrics within 600 of the int32 limit, the scan in both of its
+metric layouts (interleaved, as in one process, and half-major, as across
+processes), each also one step through the one-step entry point
+``sharded_acs_step``, and at ICE: the first 3
 steps of path 9's state-sharded decode and 2 steps of its state x time
 shape; the state-sharded traceback's walk, ``sharded_traceback``, one launch
 a decode, and its step kernel, ``sharded_traceback_step``, one launch a step
@@ -84,7 +87,9 @@ counts zeroed just before it and read just after:
   ICE decode, B=8 8-byte frames on state=4 (87 launches of the shard step,
   one of the walk); the state x time ICE decode of one 64-byte frame on
   (state=4, time=2), overlap 96 (96 warm-up and 364 main launches of the
-  step, one walk for both time blocks).  Bytes equal the data
+  step, one walk for both time blocks); a K=9 state-sharded decode of
+  65537 noisy 2-byte frames on state=4 (two launches a step: a launch
+  takes at most 65535 frames).  Bytes equal the data
   and the unsharded decode, noisy time-block bits the CPU's; each case
   prints its time, its collectives counted by
   ``harness.comms.collective_trace`` held against the analytic model, and
@@ -105,7 +110,9 @@ the kernels line as ``latency_bound_ms``; the u8 replicas' update and
 decode at K=7 and K=9, B=512, beside the reference decoders' ka9q and
 spiral columns; the shard step alone at ICE B=8 on state=4 beside its
 bound; the walk alone on path 9's two ICE decodes' words beside its latency
-bound, and those decodes split into scan and traceback), and
+bound, and those decodes split into scan and traceback, with the host's
+microseconds a step beside the device's and the idle share of one traced
+run), and
 counts the launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
 chip) and the device operations of a steady stream push from a profiler
@@ -854,22 +861,27 @@ def near_limit_metrics(rng, shape) -> torch.Tensor:
 
 
 def hold_shard(label, mesh, code, numeric, m0, sym, record, errs):
-    """The scan's route on the card (one ``sharded_acs_scan`` launch a step)
-    against its plain version ``_sharded_acs_scan_ref`` on the same inputs:
-    metrics and every word.  Returns the kernel's metrics."""
+    """The scan's route on the card (one ``sharded_acs_scan`` launch a step,
+    the metrics interleaved, as in one process) and the same scan on
+    half-major metrics (as across processes, ``_scan_on_card``), each
+    against the plain version ``_sharded_acs_scan_ref`` on the same inputs:
+    metrics and every word.  Returns the route's metrics."""
     _, s2_block, _ = statewise._shard_geometry(code, mesh, "state")
     args = (mesh, code, numeric, m0, sym, "state", statewise._parity_index(code, s2_block), record)
     n = _build.LAUNCHES["sharded_acs_scan"]
     m_k, d_k = statewise._sharded_acs_scan(*args)
+    m_h, d_h = statewise._scan_on_card(*args[:6], record, True)
     launched = _build.LAUNCHES["sharded_acs_scan"] - n
     m_r, d_r = statewise._sharded_acs_scan_ref(*args)
     torch.cuda.synchronize()
-    e = max(max_abs_err(m_k, m_r), max_abs_err(d_k, d_r) if record else 0)
-    print(f"sharded_acs_scan {label}: max_abs_err {e}")
+    e = max(max_abs_err(m, m_r) for m in (m_k, m_h))
+    if record:
+        e = max(e, max_abs_err(d_k, d_r), max_abs_err(d_h, d_r))
+    print(f"sharded_acs_scan {label}, both layouts: max_abs_err {e}")
     errs["sharded_acs_scan"] = max(errs["sharded_acs_scan"], check(f"sharded_acs_scan {label}", e))
-    if launched != sym.shape[2]:
+    if launched != 2 * sym.shape[2]:
         raise SystemExit(f"FAIL sharded_acs_scan {label}: {launched} launches for "
-                         f"{sym.shape[2]} steps")
+                         f"{sym.shape[2]} steps in two layouts")
     if record:  # the words walked from a random end state a line and frame
         g = np.random.default_rng(code.K * m0.shape[1])
         end = torch.empty((mesh.n_local, m0.shape[1]), dtype=torch.int32)
@@ -878,6 +890,37 @@ def hold_shard(label, mesh, code, numeric, m0, sym, record, errs):
                                                   dtype=np.int32))
         hold_walk(label, mesh, code, d_k, end.cuda(), errs)
     return m_k
+
+
+def hold_step_entry(label, mesh, code, numeric, m0, sym, errs):
+    """The one-step entry point ``shard.sharded_acs_step`` (a plan of one
+    step: the new metrics interleaved, ``[n, B, 2 chunk]``, the sources
+    strided halves from ``Mesh.ppermute_sources``) against the plain scan's
+    first step: metrics and words, one launch."""
+    n_dev = mesh.shape["state"]
+    n, B, n_local = m0.shape
+    chunk = n_local // 2
+    perm_lo, perm_hi = statewise.butterfly_perms(n_dev)
+    lo0, lo1, hi0, hi1 = mesh.ppermute_sources(
+        "state", (m0[..., :chunk], perm_lo[0]), (m0[..., chunk:], perm_lo[1]),
+        (m0[..., :chunk], perm_hi[0]), (m0[..., chunk:], perm_hi[1]))
+    lo = [a if a is not None else b for a, b in zip(lo0, lo1)]
+    hi = [a if a is not None else b for a, b in zip(hi0, hi1)]
+    out = torch.empty_like(m0)
+    words = torch.empty((n, B, -(-n_local // 32)), dtype=torch.int32, device="cuda")
+    before = _build.LAUNCHES["sharded_acs_scan"]
+    shard.sharded_acs_step(code, lo, hi, [c * chunk for c in mesh.axis_coords("state")],
+                           statewise._symbol_tables(code, numeric, sym).contiguous(), 0, out,
+                           words)
+    launched = _build.LAUNCHES["sharded_acs_scan"] - before
+    _, s2_block, _ = statewise._shard_geometry(code, mesh, "state")
+    m_r, d_r = statewise._sharded_acs_scan_ref(mesh, code, numeric, m0, sym[:, :, :1], "state",
+                                               statewise._parity_index(code, s2_block), True)
+    e = max(max_abs_err(out, m_r), max_abs_err(words, d_r[0]))
+    print(f"sharded_acs_scan {label}, one step through sharded_acs_step: max_abs_err {e}")
+    errs["sharded_acs_scan"] = max(errs["sharded_acs_scan"], check(f"sharded_acs_scan {label}", e))
+    if launched != 1:
+        raise SystemExit(f"FAIL sharded_acs_step {label}: {launched} launches for one step")
 
 
 def bits_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -932,6 +975,7 @@ def phase_kernels_shard(tag, rng, errs):
             for record in (True, False):
                 hold_shard(f"{code.name} on {axes} B={B} {'words' if record else 'no words'}",
                            mesh, code, numeric, m0, sym, record, errs)
+            hold_step_entry(f"{code.name} on {axes} B={B}", mesh, code, numeric, m0, sym, errs)
     ice = soft8_spec(2)
     SHARD_ICE["data"], SHARD_ICE["noisy"] = noisy_symbols(ice, B_ICE, rng, 3, VITERBI224,
                                                           ICE_BYTES)
@@ -1821,6 +1865,32 @@ def drive_parallel(tag, rng):
     if errors or not same:
         raise SystemExit("FAIL: parallel state-sharded ICE")
 
+    # More frames than a launch takes: K=9, 65537 noisy 2-byte frames (T = 24) on state=4.
+    B_big, big_bytes = shard.MAX_B + 2, 2
+    T_big = VITERBI29.transmit_bits(big_bytes)
+    _, big = noisy_symbols(soft8, B_big, rng, 3, VITERBI29, big_bytes)
+
+    def big_check(rep):
+        model = comms.statewise_model(VITERBI29, 4, B_big, T_big)
+        ok = (rep.total_count("ppermute") == model["update_ppermutes"]
+              and rep.total_count("psum") == model["traceback_psums"])
+        return ok, f"statewise_model: {model['update_ppermutes']} ppermutes"
+
+    got, launches = parallel_case(
+        tag, f"state-sharded K=9 B={B_big} 2-byte frames on state=4",
+        lambda: parallel.state_sharded_decode(VITERBI29, soft8, big, big_bytes * 8,
+                                              parallel.Mesh({"state": 4}, "cuda")),
+        ("sharded_acs_scan", "sharded_traceback"), big_check)
+    add(launches)
+    runs = -(-B_big // shard.MAX_B)
+    same = bool(torch.equal(got, unsharded_decode(VITERBI29, soft8, big, big_bytes * 8)))
+    print(f"[{tag}] parallel state-sharded K=9 B={B_big}: the launcher reported "
+          f"{launches['sharded_acs_scan']} launches for {T_big} steps ({runs} a step expected), "
+          f"equal to the unsharded decode {same}")
+    if not same or launches["sharded_acs_scan"] != runs * T_big:
+        raise SystemExit(f"FAIL: the state-sharded decode at B={B_big}")
+    del big, got
+
     # State x time at ICE: one 64-byte frame (T = 535, padded to 536).
     st_bytes, OL = ST_BYTES, ST_OVERLAP
     T_st = VITERBI224.transmit_bits(st_bytes)
@@ -2321,28 +2391,25 @@ def phase_timing_walk_shard(tag, rows, lat):
 
 def phase_timing_shard(tag, rows, lat):
     """The shard step alone at ICE B=8 on state=4, one card (every shard's
-    launch on path 9's noisy symbols, its sources in place), by CUDA events;
-    the plain step (``_sharded_acs_scan_ref`` over one step) beside it; the
-    walk alone (``phase_timing_walk_shard``); then path 9's two ICE decodes,
-    each split into its scans and its traceback, with the launches of one."""
+    launch on path 9's noisy symbols, its sources in place, the scan's own
+    plan, ``statewise._plan_scan``, in its one-process layout and in the
+    half-major one of a scan across processes), by CUDA events; the plain step
+    (``_sharded_acs_scan_ref`` over one step) beside it; the walk alone
+    (``phase_timing_walk_shard``); then path 9's two ICE decodes, each split
+    into its scans and its traceback, with the host's microseconds a step
+    beside the device's, the launches of one, and one traced run's device
+    idle share (``harness.profiling.device_trace``)."""
     ice = soft8_spec(2)
     mesh = parallel.Mesh({"state": 4}, "cuda")
     base, s2_block, n_local = statewise._shard_geometry(VITERBI224, mesh, "state")
     sym = mesh.shard(SHARD_ICE["noisy"], ())  # [4, 8, 87, 2]
     m = statewise._bias_metrics(VITERBI224, ice, mesh, base, B_ICE, n_local)
-    chunk = n_local // 2
-    perm_lo, perm_hi = statewise.butterfly_perms(4)
-    lo0, lo1, hi0, hi1 = mesh.ppermute_sources(
-        "state", (m[..., :chunk], perm_lo[0]), (m[..., chunk:], perm_lo[1]),
-        (m[..., :chunk], perm_hi[0]), (m[..., chunk:], perm_hi[1]))
-    lo = [a if a is not None else b for a, b in zip(lo0, lo1)]
-    hi = [a if a is not None else b for a, b in zip(hi0, hi1)]
-    tables = statewise._symbol_tables(VITERBI224, ice, sym).contiguous()
-    out = torch.empty_like(m)
-    words = torch.empty((4, B_ICE, n_local // 32), dtype=torch.int32, device="cuda")
-    s2_base = [c * chunk for c in mesh.axis_coords("state")]
-    ms = timed_ms(lambda: shard.sharded_acs_step(VITERBI224, lo, hi, s2_base, tables, 0, out,
-                                                 words), 50)
+    step_ms = {}
+    for half_major in (False, True):
+        plan = statewise._plan_scan(mesh, VITERBI224, ice, m, sym, "state", True, half_major)[0]
+        step_ms[half_major] = timed_ms(lambda: plan.step(0, 0), 50)
+        del plan
+    ms = step_ms[False]
     pidx = statewise._parity_index(VITERBI224, s2_block)
     plain_ms = timed_ms(lambda: statewise._sharded_acs_scan_ref(
         mesh, VITERBI224, ice, m, sym[:, :, :1], "state", pidx, True), 3)
@@ -2350,21 +2417,23 @@ def phase_timing_shard(tag, rows, lat):
     rows["sharded_acs_scan"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                                 "bound_by": bnd[1]}
     print(f"[{tag}] sharded_acs_scan ICE B={B_ICE} on state=4 (one card), one step: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+          f"{ms:.4f} ms interleaved (one process's layout), {step_ms[True]:.4f} ms half-major "
+          f"(across processes), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
           f"{100 * bnd[0] / ms:.1f}% of bound")
     phase_timing_walk_shard(tag, rows, lat)
     _, clean = noisy_symbols(ice, 1, np.random.default_rng(SEED), 0, VITERBI224, ST_BYTES)
     cases = (
-        (f"state-sharded ICE B={B_ICE} on state=4", lambda: parallel.state_sharded_decode(
+        ("sw", f"state-sharded ICE B={B_ICE} on state=4", lambda: parallel.state_sharded_decode(
             VITERBI224, ice, SHARD_ICE["noisy"], ICE_BYTES * 8, mesh)),
-        (f"state x time ICE {ST_BYTES}-byte frame on (state=4, time=2)",
+        ("st", f"state x time ICE {ST_BYTES}-byte frame on (state=4, time=2)",
          lambda st=parallel.Mesh({"state": 4, "time": 2}, "cuda"): parallel.state_time_decode(
              VITERBI224, ice, clean, ST_BYTES * 8, st, overlap=ST_OVERLAP)))
-    for label, fn in cases:
+    for key, label, fn in cases:
         torch.cuda.synchronize()
         before = dict(_build.LAUNCHES)
         fn()  # warm
         launched = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+        steps = launched["sharded_acs_scan"]
         print(f"[{tag}] {label}: launches a decode {json.dumps(launched)}")
         for _ in range(2):
             torch.cuda.synchronize()
@@ -2374,11 +2443,25 @@ def phase_timing_shard(tag, rows, lat):
                 fn()
                 end.record()
             end.synchronize()
-            split = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+            split = {k: sum(a.elapsed_time(b) for a, b in spans[k]) for k in ("scan", "traceback")}
+            host_ms = {k: 1e3 * sum(v) for k, v in spans["host_s"].items()}
             total = start.elapsed_time(end)
             print(f"[{tag}] {label}: decode {total:.4f} ms = scan {split['scan']:.4f} ms "
                   f"({len(spans['scan'])} scans) + traceback {split['traceback']:.4f} ms "
-                  f"({100 * split['traceback'] / total:.1f}%) + the rest")
+                  f"({100 * split['traceback'] / total:.1f}%) + the rest; the scans' issue on the "
+                  f"host clock {host_ms['scan']:.4f} ms = {1e3 * host_ms['scan'] / steps:.2f} us "
+                  f"a step against {1e3 * split['scan'] / steps:.2f} us a step of device span "
+                  f"({steps} steps); the traceback's issue {host_ms['traceback']:.4f} ms")
+        torch.cuda.synchronize()
+        trace_dir = os.path.join("chiprun_out", f"chip_smoke_trace_{key}")
+        with profiling.device_trace(trace_dir):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span_ms = 1e3 * (time.perf_counter() - t0)
+        busy = profiling.device_busy_ms(trace_dir)
+        print(f"[{tag}] {label}: one traced decode, span {span_ms:.4f} ms, device time "
+              f"{busy:.4f} ms, idle share {100 * (1 - busy / span_ms):.1f}%")
     torch.cuda.empty_cache()
 
 

@@ -35,7 +35,12 @@
 // Layouts (what the Python side passes; no copy is made):
 //   lo_j, hi_j   [B, chunk] int32, unit stride along s2, batch stride lo_bs[j]
 //   table        [n, B, T, 2^R] int32, contiguous (_symbol_tables of the scan)
-//   m_out        [n, B, 2 chunk] int32, contiguous
+//   m_out        half-major [n, 2, B, chunk] int32 (target, half, frame, state),
+//                contiguous: new local state k of target j and frame b at ((2 j +
+//                h) B + b) chunk + k - h chunk, h = k >= chunk -- the scan's
+//                ping-pong buffers, so that each half the next step sends is one
+//                contiguous block; or interleaved [n, B, 2 chunk], contiguous
+//                (the one-step entry point's)
 //   dec          [n, B, W] int32 (row t of the scan's [T, n, B, W] words),
 //                W = ceil(2 chunk / 32): bit i % 32 of word i / 32 the decision
 //                of local new state i (1: the HIGH predecessor); null: no words
@@ -60,6 +65,8 @@
 //    to eight popcounts (unrolled: masks past R are 0), so no [n, chunk]
 //    index table is read.
 //  * Offsets are 64-bit: the words reach 87 x 4 x 8 x 65536 at ICE B=8.
+//  * A launch covers at most 65535 frames (the grid's y extent); the launcher
+//    issues one for each run of 65535 frames, frame0 the run's first frame.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +77,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShardThreads = 256;  // eight warps a block
 constexpr int kMaxTargets = 64;     // local target shards a launch
 constexpr int kMaxR = 8;            // outputs a symbol group
+constexpr int kMaxFrames = 65535;   // frames a launch (the grid's y extent)
 
 // Each local target's sources and place on the state axis, by value.
 struct ShardTargets {
@@ -96,13 +104,15 @@ __device__ __forceinline__ unsigned spread16(unsigned x) {
   return x;
 }
 
+template <bool kHalfMajor>
 __global__ void __launch_bounds__(kShardThreads)
 sharded_acs_step_kernel(const ShardTargets tg, const ShardCode cd, const int* __restrict__ table,
-                        int* __restrict__ m_out, int* __restrict__ dec, int B, int T, int t,
-                        long long chunk, int W) {
-  // Grid (s2 blocks, B, n): no division a thread; a block is 8 whole warps of one row.
+                        int* __restrict__ m_out, int* __restrict__ dec, int B, int frame0, int T,
+                        int t, long long chunk, int W) {
+  // Grid (s2 blocks, frames frame0.., n): no division a thread; a block is 8 whole warps of one
+  // row.
   const int lane = threadIdx.x & 31;
-  const int j = blockIdx.z, b = blockIdx.y;
+  const int j = blockIdx.z, b = frame0 + blockIdx.y;
   const long long row = (long long)j * B + b;
   const long long s2_loc = (long long)blockIdx.x * kShardThreads + threadIdx.x;
   bool d0 = false, d1 = false;
@@ -120,8 +130,21 @@ sharded_acs_step_kernel(const ShardTargets tg, const ShardCode cd, const int* __
     const int hi1 = (int)(hi + (unsigned)__ldg(trow + (pidx ^ cd.off[3])));
     d0 = hi0 < lo0;
     d1 = hi1 < lo1;
-    *reinterpret_cast<int2*>(m_out + row * 2 * chunk + 2 * s2_loc) =
-        make_int2(d0 ? hi0 : lo0, d1 ? hi1 : lo1);
+    // New state k of (j, b) lies at hrow chunk + k, plus hs from k = chunk on: hrow = 2 row
+    // and hs = 0 interleaved; hrow = 2 j B + b (half 0's row) and hs = (B - 1) chunk
+    // half-major.  States i = 2 s2_loc and i + 1: one 8-byte store, both in one half where
+    // chunk is even; at chunk = 1 (half-major) one store a half.
+    const long long i = 2 * s2_loc;
+    const long long hrow = kHalfMajor ? row + (long long)j * B : 2 * row;
+    const long long hs = kHalfMajor ? (long long)(B - 1) * chunk : 0;
+    int* out = m_out + hrow * chunk + i;
+    const int n0 = d0 ? hi0 : lo0, n1 = d1 ? hi1 : lo1;
+    if (kHalfMajor && (chunk & 1)) {
+      out[0] = n0;
+      out[1 + hs] = n1;
+    } else {
+      *reinterpret_cast<int2*>(out + (i >= chunk ? hs : 0)) = make_int2(n0, n1);
+    }
   }
   if (dec == nullptr) return;
   const unsigned b0 = __ballot_sync(kFull, d0), b1 = __ballot_sync(kFull, d1);
@@ -245,11 +268,15 @@ extern "C" {
 // One step t of the state-sharded scan over n local target shards of B
 // frames.  lo, hi, lo_bs, hi_bs, s2_base: host arrays of n entries (device
 // addresses of each target's [B, chunk] sources, their batch strides, base/2);
-// masks: R host entries; offs: the four c(h, bit); dec may be null.
+// masks: R host entries; offs: the four c(h, bit); m_out half-major (half_major
+// = 1) or interleaved (0); dec may be null.  One kernel launch for each run of
+// up to 65535 frames; *launches: the launches made.
 int viterbi_shard_step(const long long* lo, const long long* lo_bs, const long long* hi,
                        const long long* hi_bs, const long long* s2_base, int n,
                        const unsigned* masks, int R, const int* offs, const void* table, int T,
-                       int t, void* m_out, void* dec, int B, long long chunk, void* stream) {
+                       int t, void* m_out, int half_major, void* dec, int B, long long chunk,
+                       int* launches, void* stream) {
+  *launches = 0;
   if (n < 1 || n > kMaxTargets || R < 1 || R > kMaxR || B < 1 || chunk < 1 || t < 0 || t >= T)
     return (int)cudaErrorInvalidValue;
   ShardTargets tg;
@@ -266,11 +293,22 @@ int viterbi_shard_step(const long long* lo, const long long* lo_bs, const long l
   for (int k = 0; k < 4; ++k) cd.off[k] = offs[k];
   cd.R = R;
   const long long blocks = (chunk + kShardThreads - 1) / kShardThreads;
-  if (blocks > 0x7fffffffLL || B > 65535) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int W = (int)((2 * chunk + 31) / 32);
-  sharded_acs_step_kernel<<<dim3((unsigned)blocks, B, n), kShardThreads, 0, (cudaStream_t)stream>>>(
-      tg, cd, (const int*)table, (int*)m_out, (int*)dec, B, T, t, chunk, W);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += kMaxFrames) {
+    const int nb = B - b0 < kMaxFrames ? B - b0 : kMaxFrames;
+    const dim3 grid((unsigned)blocks, nb, n);
+    if (half_major)
+      sharded_acs_step_kernel<true><<<grid, kShardThreads, 0, (cudaStream_t)stream>>>(
+          tg, cd, (const int*)table, (int*)m_out, (int*)dec, B, b0, T, t, chunk, W);
+    else
+      sharded_acs_step_kernel<false><<<grid, kShardThreads, 0, (cudaStream_t)stream>>>(
+          tg, cd, (const int*)table, (int*)m_out, (int*)dec, B, b0, T, t, chunk, W);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return (int)cudaSuccess;
 }
 
 // The whole traceback over the words dec (element (t, j, b, w) at t st + j sn

@@ -12,8 +12,9 @@ rank:
   the ranks), one time block a rank, overlap 56, the halos over NCCL;
 * state sharding: VITERBI224 (ICE) soft8, 8-byte frames, B=8, the state
   axis over the ranks (four half-shard ppermutes and a psum a step over
-  NCCL, the step on the shard kernel, ``sharded_acs_scan``); the copy that
-  a send makes of a strided half of the metrics is timed apart;
+  NCCL, the step on the shard kernel, ``sharded_acs_scan``; the scan and
+  its traceback each planned once, ``statewise._plan_scan`` and
+  ``_walk_steps``, so a step issues one launch and its NCCL calls);
 * state x time: one 64-byte ICE frame (T = 535, padded to 536) on (state=2,
   time=2), overlap 96: each rank its (state, time) shard of the trellis,
   96 warm-up and 364 main steps on the shard kernel, each with the state
@@ -31,11 +32,13 @@ analytic model's prediction at the H100 figures (``harness/comms.py``), and
 the collectives that rank 0 counted.  Rank 0 traces one noisy time-block
 run and one state-sharded run (device time by operation, the trace under
 ``chiprun_out/``), and splits one state-sharded and one state x time run
-into scan and traceback by CUDA events; it also traces one state x time run
+into scan and traceback by CUDA events, beside the host clock's
+microseconds a step of their issue; it also traces one state x time run
 and counts, in each traced decode, the host's ``cudaStreamSynchronize``
-calls and copies from pageable memory, and the kernel launches of a decode
-(the traceback's step kernel once a step: its state lines span the ranks).
-Results also go to ``chiprun_out/probe_parallel.json``.
+calls and copies from pageable memory, the device's idle share of the
+traced span, and the kernel launches of a decode (the traceback's step
+kernel once a step: its state lines span the ranks).  Results also go to
+``chiprun_out/probe_parallel.json``.
 
 ``--device cpu`` runs the same program on gloo in CPU processes at small
 sizes (K=7 64-byte frames, VITERBI29 in place of ICE, a 32-byte frame and
@@ -121,14 +124,16 @@ def _local_timed(fn, device, reps=3):
     return out, float(np.median(times))
 
 
-def _phase_split(fn, device) -> tuple[float, float]:
+def _phase_split(fn, device) -> tuple[float, float, float, float]:
     """One more run of ``fn`` on every rank, its scans and its tracebacks
-    between CUDA events: this rank's ``(scan ms, traceback ms)``."""
+    between CUDA events: this rank's ``(scan ms, traceback ms, scan issue
+    ms, traceback issue ms)``, the last two on the host clock."""
     dist.barrier()
     with profiling.sharded_phase_spans() as spans:
         fn()
     _sync(device)
-    return tuple(sum(a.elapsed_time(b) for a, b in spans[k]) for k in ("scan", "traceback"))
+    return (*(sum(a.elapsed_time(b) for a, b in spans[k]) for k in ("scan", "traceback")),
+            *(1e3 * sum(spans["host_s"][k]) for k in ("scan", "traceback")))
 
 
 def _profile(fn, rank, log_dir, label):
@@ -154,10 +159,14 @@ def _profile(fn, rank, log_dir, label):
     busy = sorted(rows, key=dev, reverse=True)[:8]
     host = {e.key: e.count for e in rows
             if any(w in e.key for w in ("Synchronize", "Memcpy", "LaunchKernel", "nccl"))}
+    device_ms = profiling.device_busy_ms(str(log_dir))
     waits = {"stream_syncs": sum(n for k, n in host.items() if "StreamSynchronize" in k),
-             "pageable_copies": sum(n for k, n in host.items() if "Pageable" in k)}
-    print(f"trace of one {label} run on rank 0: span {1e3 * span:.4f} ms, device time "
-          f"{sum(dev(e) for e in rows) / 1e3:.4f} ms; by operation (ms, calls): "
+             "pageable_copies": sum(n for k, n in host.items() if "Pageable" in k),
+             "span_ms": 1e3 * span, "device_ms": device_ms,
+             "idle_share": 1 - device_ms / (1e3 * span)}
+    print(f"trace of one {label} run on rank 0: span {1e3 * span:.4f} ms, device busy "
+          f"{device_ms:.4f} ms (idle {100 * waits['idle_share']:.1f}%; the operations' device "
+          f"times sum to {sum(dev(e) for e in rows) / 1e3:.4f}); by operation (ms, calls): "
           + "; ".join(f"{e.key[:60]} {dev(e) / 1e3:.4f} x{e.count}" for e in busy if dev(e))
           + f"; host calls {json.dumps(host)}; {json.dumps(waits)}", flush=True)
     return waits
@@ -331,26 +340,15 @@ def main(argv=None) -> int:
                                    "efficiency": eff, "model": model, "equal": same,
                                    "collectives": counted}
         if on_card:
-            # A send copies its strided half ([B, chunk] of a [B, 2 chunk] shard) to contiguous memory.
-            n_local = ice.num_states // world
-            half = torch.zeros((1, B_ice, n_local), dtype=torch.int32, device=device)[
-                ..., n_local // 2:]
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            half.contiguous()
-            start.record()
-            for _ in range(20):
-                half.contiguous()
-            end.record()
-            end.synchronize()
-            copy_ms = start.elapsed_time(end) / 20
-            say(f"state sharding: a send's copy of a strided half ({half.numel() * 4} bytes) "
-                f"{copy_ms:.4f} ms, two a step and rank: {2 * copy_ms * T_ice:.4f} ms a decode of "
-                f"{1e3 * t_n:.4f}; {1e3 * t_n / T_ice:.4f} ms a step over {world} ranks; one "
-                f"more run on rank 0: scan {sw_split[0]:.4f} ms, traceback {sw_split[1]:.4f} ms "
-                f"({sw_split[1] / T_ice:.4f} ms a step); launches a decode "
+            say(f"state sharding: {1e3 * t_n / T_ice:.4f} ms a step over {world} ranks; one more "
+                f"run on rank 0: scan {sw_split[0]:.4f} ms ({1e3 * sw_split[0] / T_ice:.2f} us a "
+                f"step; its issue on the host clock {1e3 * sw_split[2] / T_ice:.2f} us a step), "
+                f"traceback {sw_split[1]:.4f} ms ({1e3 * sw_split[1] / T_ice:.2f} us a step; its "
+                f"issue {1e3 * sw_split[3] / T_ice:.2f} us a step); launches a decode "
                 f"{json.dumps(sw_launches)}")
-            record["state_sharded"].update(send_copy_ms=copy_ms, scan_ms=sw_split[0],
-                                           traceback_ms=sw_split[1], waits=sw_waits,
+            record["state_sharded"].update(scan_ms=sw_split[0], traceback_ms=sw_split[1],
+                                           scan_issue_ms=sw_split[2],
+                                           traceback_issue_ms=sw_split[3], waits=sw_waits,
                                            launches=sw_launches)
 
     # -- state x time -------------------------------------------------------------------
@@ -366,7 +364,7 @@ def main(argv=None) -> int:
     run = lambda: state_time_decode_bits(ice, numeric, block, stmesh, overlap=st_ol)  # noqa: E731
     bits, t_n = _timed(run, device)
     counted, wire = report(run)
-    st_split = _phase_split(run, device) if on_card else (float("nan"),) * 2
+    st_split = _phase_split(run, device) if on_card else (float("nan"),) * 4
     st_waits = (_profile(run, rank, pathlib.Path(args.out).parent / "probe_parallel_trace_st",
                          "state x time decode") if on_card else None)
     st_launches = _launches(run) if on_card else None
@@ -395,12 +393,14 @@ def main(argv=None) -> int:
             f"scaling efficiency {eff:.4f} (model {model['predicted_efficiency']:.4f}); bytes "
             f"equal to the unsharded decode and to the one-card run {same}, differing bytes "
             f"{errors}; collectives {counted}, {wire} wire bytes; one more run on rank 0: scans "
-            f"{st_split[0]:.4f} ms, traceback {st_split[1]:.4f} ms; launches a decode "
+            f"{st_split[0]:.4f} ms (issue {st_split[2]:.4f} ms on the host clock), traceback "
+            f"{st_split[1]:.4f} ms (issue {st_split[3]:.4f} ms); launches a decode "
             f"{json.dumps(st_launches)}")
         record["state_time"] = {"sharded_s": t_n, "one_card_s": t_1, "kernel_decode_s": t_k,
                                 "efficiency": eff, "model": model, "equal": same,
                                 "collectives": counted, "scan_ms": st_split[0],
-                                "traceback_ms": st_split[1], "waits": st_waits,
+                                "traceback_ms": st_split[1], "scan_issue_ms": st_split[2],
+                                "traceback_issue_ms": st_split[3], "waits": st_waits,
                                 "launches": st_launches}
         record["ok"] = bool(ok)
         if on_card:

@@ -11,12 +11,13 @@ run can drop a Chrome trace next to its JSON samples.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 
 import torch
 
-__all__ = ["device_trace", "Timer", "annotate", "sharded_phase_spans"]
+__all__ = ["device_trace", "device_busy_ms", "Timer", "annotate", "sharded_phase_spans"]
 
 
 @contextlib.contextmanager
@@ -34,16 +35,35 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def device_busy_ms(log_dir: str) -> float:
+    """The device's busy time in the trace ``device_trace`` wrote to
+    ``log_dir``, ms: the union of its kernels', copies' and fills' intervals
+    over every stream (a sum of ``key_averages()``' device times counts
+    a collective twice, as its kernel and its annotation, and overlapping
+    streams once each)."""
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
 @contextlib.contextmanager
 def sharded_phase_spans():
     """CUDA events around every ``_sharded_acs_scan`` and
     ``_sharded_traceback`` call inside the block (``parallel/statewise.py``,
     and ``parallel/state_time.py``, which imports both): yields ``{"scan":
-    [...], "traceback": [...]}`` of (start, end) event pairs, read after a
-    synchronise with ``elapsed_time``."""
+    [...], "traceback": [...], "host_s": {"scan": [...], "traceback":
+    [...]}}``, (start, end) event pairs to read after a synchronise with
+    ``elapsed_time``, and the host clock's seconds of each call (its issue:
+    the calls wait for no device work)."""
     from ..parallel import state_time, statewise
 
-    spans = {"scan": [], "traceback": []}
+    spans = {"scan": [], "traceback": [], "host_s": {"scan": [], "traceback": []}}
     saved = []
     for mod in (statewise, state_time):
         for name, key in (("_sharded_acs_scan", "scan"), ("_sharded_traceback", "traceback")):
@@ -54,7 +74,9 @@ def sharded_phase_spans():
                 start, end = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
                 start.record()
+                t0 = time.perf_counter()
                 out = fn(*args)
+                spans["host_s"][key].append(time.perf_counter() - t0)
                 end.record()
                 spans[key].append((start, end))
                 return out

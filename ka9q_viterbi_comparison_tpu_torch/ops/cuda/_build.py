@@ -26,7 +26,7 @@ import time
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
-           "check_cuda_int32"]
+           "Bound", "check_cuda_int32"]
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
@@ -81,7 +81,8 @@ _SIGNATURES = {
                            _I, _I, _P),
     "viterbi_chase": (_P, _I, _P, _P),
     "viterbi_u8": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "viterbi_shard_step": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _L, _P),
+    "viterbi_shard_step": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _I, _L,
+                           _PI, _P),
     "viterbi_shard_walk": (_P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_shard_walk_step": (_P, _L, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -166,9 +167,27 @@ def check_cuda_int32(name: str, t: torch.Tensor, shape: tuple) -> None:
 def launch(counter: str, fn_name: str, device: torch.device, *args) -> None:
     """Call one extern "C" launcher on the device's current stream; raise on
     a non-zero CUDA error code; count the launch."""
-    fn = library()[fn_name]
     with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
-    LAUNCHES[counter] += 1
+        Bound(counter, fn_name, device)(*args)
+
+
+class Bound:
+    """One extern "C" launcher resolved once, for repeated calls: the library
+    function and the device's current stream at binding.  ``bound(*args)``
+    calls it on that stream, raises on a non-zero CUDA error code and adds
+    the kernel launches the call made to ``counter``: one, or, where the
+    launcher reports them through an ``int*`` argument, the value it wrote
+    to ``reported`` (the caller passes ``ctypes.pointer(reported)``).  The
+    caller makes the calls with ``device`` current."""
+
+    def __init__(self, counter: str, fn_name: str, device: torch.device,
+                 reported: ctypes.c_int | None = None):
+        self.fn_name, self.counter, self.reported = fn_name, counter, reported
+        self.fn = library()[fn_name]
+        self.stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+    def __call__(self, *args) -> None:
+        err = self.fn(*args, self.stream)
+        if err != 0:
+            raise RuntimeError(f"{self.fn_name}: CUDA error {err} at launch")
+        LAUNCHES[self.counter] += 1 if self.reported is None else self.reported.value

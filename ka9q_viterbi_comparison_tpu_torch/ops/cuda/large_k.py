@@ -49,9 +49,12 @@ from . import _build
 from .kernels import _state_order_words
 
 __all__ = ["acs_update_large", "acs_update_large_ref", "plan", "plan_ref", "Plan",
-           "pick_state_block", "metric_dtype_for", "MAX_BLOCK", "PACK"]
+           "pick_state_block", "metric_dtype_for", "MAX_BLOCK", "MAX_CALL_B", "PACK"]
 
 MAX_BLOCK = 1 << 17  # states per grid block of the Pallas kernels
+# Frames a call on the card: every form's launch puts the frames on a grid's y
+# extent.  A deliberate difference from the JAX package, which has no cap.
+MAX_CALL_B = 65535
 PACK = 32            # states per packed decision word
 INT32_MAX = 2**31 - 1
 
@@ -125,7 +128,11 @@ def plan(code: CodeSpec, B: int, T: int) -> Plan:
     octets where ``large_k4.supports`` the code; else streaming.  Raises
     for a shape that no form takes."""
     from . import large_k2, large_k4  # both import this module
-    if not 7 <= code.K <= 24 or not 1 <= code.R <= 8 or not 1 <= B <= 65535 or T < 1:
+    if B > MAX_CALL_B:
+        raise ValueError(f"acs_update_large: no form takes B={B}: at most {MAX_CALL_B} frames a "
+                         "call (the kernels' grid y extent; the JAX package has no cap: split "
+                         "the batch)")
+    if not 7 <= code.K <= 24 or not 1 <= code.R <= 8 or not 1 <= B or T < 1:
         raise ValueError(f"acs_update_large: no form takes {code.name} (K={code.K}, "
                          f"R={code.R}) at B={B}, T={T}")
     blocks = large_k2.chip_blocks(code, B)

@@ -23,6 +23,15 @@ the CPU, and a mesh refuses a process group of the other backend.
 gets a view of its local source or the buffer a transfer filled, for a
 kernel that reads its operands where they lie.
 
+Plans.  A scan repeats one exchange and one reduction a step.
+``plan_exchange`` does the host work of ``ppermute_sources`` once: the
+pairs, peers and tags, the receive buffers (allocated once and filled anew
+each step: NCCL orders a later receive after the kernel that read the
+buffer, on the current stream), the ``P2POp`` list of each set of
+operands; ``Exchange.run`` then issues one batch.  ``plan_psum`` does the
+same for a ``psum`` into a fixed buffer (``Reduction``).  Each run records
+what the unplanned call records.
+
 Counting.  Every collective goes through ``_record``, which appends one
 ``CollectiveCall`` to each list opened by ``recording()``;
 ``harness.comms.collective_trace`` turns them into a report.
@@ -43,7 +52,7 @@ import torch.distributed as dist
 
 from ..models.decoder import resolve_device
 
-__all__ = ["Mesh", "CollectiveCall", "recording", "backend_for"]
+__all__ = ["Mesh", "CollectiveCall", "Exchange", "Reduction", "recording", "backend_for"]
 
 
 def backend_for(device: torch.device | str) -> str:
@@ -224,13 +233,19 @@ class Mesh:
 
     # -- collectives -------------------------------------------------------------
 
-    def _record(self, prim: str, x: torch.Tensor, pairs: int, axes: tuple, site=()) -> None:
-        if not _RECORDERS:
-            return
-        call = CollectiveCall(prim, tuple(x.shape[1:]), str(x.dtype).removeprefix("torch."),
+    @staticmethod
+    def _call(prim: str, x: torch.Tensor, pairs: int, axes: tuple, site=()) -> CollectiveCall:
+        return CollectiveCall(prim, tuple(x.shape[1:]), str(x.dtype).removeprefix("torch."),
                               x[0].numel() * x.element_size(), pairs, tuple(axes), tuple(site))
-        for calls in _RECORDERS:
-            calls.append(call)
+
+    @staticmethod
+    def _emit(*calls: CollectiveCall) -> None:
+        for recorder in _RECORDERS:
+            recorder.extend(calls)
+
+    def _record(self, prim: str, x: torch.Tensor, pairs: int, axes: tuple, site=()) -> None:
+        if _RECORDERS:
+            self._emit(self._call(prim, x, pairs, axes, site))
 
     def _pairs(self, axis: str, perm: tuple) -> list[tuple[int, int]]:
         """``perm`` (coordinates along ``axis``) as (source, target) shard pairs,
@@ -285,31 +300,64 @@ class Mesh:
         receives -- a view ``x[source]`` where the source is in this process,
         a buffer that the cross-process transfer filled where it is not, None
         where no pair targets the shard.  Each move is recorded as
-        ``ppermute`` records it; the transfers of all moves go in one batch."""
-        out, ops, tag = [], [], 0
-        for x, perm in moves:
-            perm = tuple((int(s), int(d)) for s, d in perm)
+        ``ppermute`` records it; the transfers of all moves go in one batch.
+        The one-call form of ``plan_exchange`` (across processes a strided
+        operand is copied first: NCCL sends contiguous memory)."""
+        xs = [x if self.world == 1 else x.contiguous() for x, _ in moves]
+        exchange, = self.plan_exchange(axis, [perm for _, perm in moves], [xs])
+        exchange.run()
+        return exchange.placed
+
+    def plan_exchange(self, axis: str, perms, operand_sets) -> list["Exchange"]:
+        """``ppermute_sources`` of the moves ``zip(operands, perms)`` for each
+        list of operands in ``operand_sets``, planned once for repeated runs:
+        one ``Exchange`` a set, whose ``placed`` lists are fixed and whose
+        ``run()`` moves the operands' current contents.  The sets share the
+        receive buffers (a move's operands have one shape and dtype in every
+        set); an operand that this process sends from must be contiguous."""
+        perms = [tuple((int(s), int(d)) for s, d in perm) for perm in perms]
+        for perm in perms:
             if len({d for _, d in perm}) != len(perm) or len({s for s, _ in perm}) != len(perm):
                 raise ValueError(f"ppermute: {perm} is not a permutation")
-            self._record("ppermute", x, len(perm), (axis,), perm)
-            placed = [None] * self.n_local
+        for xs in operand_sets:
+            if len(xs) != len(perms) or any(
+                    (x.shape, x.dtype) != (y.shape, y.dtype) for x, y in zip(xs, operand_sets[0])):
+                raise ValueError("plan_exchange: every set needs an operand of one shape and "
+                                 "dtype a move")
+        # A move's pairs that touch this process: (local target, or None for a send; local
+        # source; peer; tag; the receive buffer where the source is remote).
+        tag, routes = 0, []
+        for x, perm in zip(operand_sets[0], perms):
+            route = []
             for s, d in self._pairs(axis, perm):
                 so, do = self.owner(s), self.owner(d)
-                if do == self.rank and so == self.rank:
-                    placed[d - self.first] = x[s - self.first]
-                elif do == self.rank:
-                    placed[d - self.first] = torch.empty(x.shape[1:], dtype=x.dtype,
-                                                         device=x.device)
-                    ops.append(dist.P2POp(dist.irecv, placed[d - self.first], so, tag=tag))
+                if do == self.rank:
+                    recv = None if so == self.rank else torch.empty(x.shape[1:], dtype=x.dtype,
+                                                                    device=x.device)
+                    route.append((d - self.first, s - self.first, so, tag, recv))
                 elif so == self.rank:
-                    # NCCL sends contiguous memory: a strided source is copied.
-                    ops.append(dist.P2POp(dist.isend, x[s - self.first].contiguous(), do,
-                                          tag=tag))
+                    route.append((None, s - self.first, do, tag, None))
                 tag += 1  # every process counts the pairs in one order
-            out.append(placed)
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+            routes.append(route)
+        out = []
+        for xs in operand_sets:
+            calls = [self._call("ppermute", x, len(perm), (axis,), perm)
+                     for x, perm in zip(xs, perms)]
+            placed, ops = [[None] * self.n_local for _ in xs], []
+            for m, (x, route) in enumerate(zip(xs, routes)):
+                shards = x.unbind(0)
+                for target, src, peer, tg, recv in route:
+                    if target is None:  # a send
+                        if not shards[src].is_contiguous():
+                            raise ValueError("plan_exchange: a send reads contiguous memory; "
+                                             f"the operand of move {m} is strided")
+                        ops.append(dist.P2POp(dist.isend, shards[src], peer, tag=tg))
+                    elif recv is None:
+                        placed[m][target] = shards[src]
+                    else:
+                        placed[m][target] = recv
+                        ops.append(dist.P2POp(dist.irecv, recv, peer, tag=tg))
+            out.append(Exchange(placed, ops, calls))
         return out
 
     def _process_groups(self, axis: str) -> dict[tuple, object]:
@@ -365,26 +413,50 @@ class Mesh:
             return None
         return [[s - self.first for s in line] for line in lines if self.owner(line[0]) == self.rank]
 
+    def _group_rows(self, axis: str) -> list[tuple]:
+        """``(rows, group)`` for each set of ranks that a reduction group of
+        this process spans: the rows of the groups' local partial results
+        that one ``all_reduce`` over ``group`` completes."""
+        if self.world == 1:
+            return []
+        _, _, rows_of = self._local_lines(axis)
+        return [(rows_of[rs], group) for rs, group in self._process_groups(axis).items()
+                if rs in rows_of]
+
+    @staticmethod
+    def _all_reduce_rows(red: torch.Tensor, group_rows: list[tuple], op: str) -> None:
+        for rows, group in group_rows:
+            buf = red[rows].contiguous()  # a slice of rows of red: a view, reduced in place
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN,
+                            group=group)
+            if not isinstance(rows, slice):
+                red[rows] = buf
+
     def _reduce(self, x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
-        members, line_of, rows_of = self._local_lines(axis)
+        members, line_of, _ = self._local_lines(axis)
         red = torch.stack([x[m].sum(0, dtype=x.dtype) if op == "sum" else x[m].amin(0)
                            for m in members])
-        if self.world > 1:
-            for rs, group in self._process_groups(axis).items():
-                rows = rows_of.get(rs)
-                if rows is None:
-                    continue
-                buf = red[rows].contiguous()  # a slice of rows of red: a view, reduced in place
-                dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN,
-                                group=group)
-                if not isinstance(rows, slice):
-                    red[rows] = buf
+        self._all_reduce_rows(red, self._group_rows(axis), op)
         return red[line_of]
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.psum`` over ``axis``: every shard of a group gets the group's sum."""
         self._record("psum", x, 1, (axis,))
         return self._reduce(x, axis, "sum")
+
+    def plan_psum(self, x: torch.Tensor, axis: str) -> "Reduction":
+        """``psum(x, axis)`` planned once for repeated runs on the fixed
+        buffer ``x`` (contiguous): ``Reduction.out`` holds the sums after
+        each ``run()``.  Where each reduction group holds one shard of this
+        process, in order, the sums are made in place (``out`` is ``x``):
+        one ``all_reduce`` a set of ranks, nothing else."""
+        if not x.is_contiguous():
+            raise ValueError("plan_psum: the buffer must be contiguous")
+        members, line_of, _ = self._local_lines(axis)
+        alone = len(members) == self.n_local and all(
+            isinstance(m, slice) and (m.start, m.stop) == (j, j + 1) for j, m in enumerate(members))
+        return Reduction(x, members, None if alone else line_of, self._group_rows(axis),
+                         self._call("psum", x, 1, (axis,)))
 
     def record_psums(self, x: torch.Tensor, axis: str, steps: int) -> None:
         """Record ``steps`` calls of ``psum(x, axis)`` and issue none: the
@@ -410,3 +482,47 @@ class Mesh:
             self._cache[key] = self.axis_index(axis).to(torch.long)
         placed[torch.arange(x.shape[0], device=x.device), self._cache[key]] = x
         return self._reduce(placed, axis, "sum")
+
+
+class Exchange:
+    """One planned ``ppermute_sources`` (``Mesh.plan_exchange``): ``placed``
+    as ``ppermute_sources`` returns it, fixed; ``run()`` records the moves
+    and issues the cross-process transfers as one batch."""
+
+    def __init__(self, placed: list, ops: list, calls: list[CollectiveCall]):
+        self.placed, self.ops, self.calls = placed, ops, calls
+
+    def run(self) -> None:
+        if _RECORDERS:
+            Mesh._emit(*self.calls)
+        if self.ops:
+            for req in dist.batch_isend_irecv(self.ops):
+                req.wait()
+
+
+class Reduction:
+    """One planned ``psum`` (``Mesh.plan_psum``) of the buffer ``x`` into
+    ``out``: the local partial sums of each reduction group, one
+    ``all_reduce`` a set of ranks (``Mesh._all_reduce_rows``, as
+    ``Mesh.psum``), each shard's group sum."""
+
+    def __init__(self, x: torch.Tensor, members: list, line_of: torch.Tensor | None,
+                 group_rows: list, call: CollectiveCall):
+        self.x, self.members, self.line_of, self.group_rows = x, members, line_of, group_rows
+        self.call = call
+        if line_of is None:
+            self.red = self.out = x
+        else:
+            self.red = torch.empty((len(members), *x.shape[1:]), dtype=x.dtype, device=x.device)
+            self.out = torch.empty_like(x)
+
+    def run(self) -> torch.Tensor:
+        if _RECORDERS:
+            Mesh._emit(self.call)
+        if self.line_of is not None:
+            for i, m in enumerate(self.members):
+                torch.sum(self.x[m], 0, dtype=self.x.dtype, out=self.red[i])
+        Mesh._all_reduce_rows(self.red, self.group_rows, "sum")
+        if self.line_of is not None:
+            torch.index_select(self.red, 0, self.line_of, out=self.out)
+        return self.out

@@ -28,24 +28,33 @@ is read with a gather and summed over the shards with one ``psum`` of
 are equal).
 
 The JAX module's scan and traceback are ``jnp`` with no Pallas kernel
-behind them.  Here each takes its route by device.  The scan
-(``_on_kernel``): on a CUDA device one launch a step of
+behind them; JAX compiles each into one program.  Here each takes its route
+by device, and on a card does its host work once a scan, as a compile would.
+The scan (``_on_kernel``): on a CUDA device one launch a step of
 ``sharded_acs_step_kernel`` (``ops/cuda/shard.py``) for every local shard
 and frame, each target's old metrics read where the exchange left them
-(``Mesh.ppermute_sources``: halves of the local shards in place, buffers
-that NCCL filled across processes), the penalty index computed in the
-kernel.  The traceback (``_walk_on_kernel``): on a CUDA device where every
-state line lies in this process, one launch of ``sharded_walk_kernel`` for
-the whole decode, the words walked where they lie and the ``psum`` a step
-recorded (``Mesh.record_psums``); where a line spans processes, one launch
-of ``sharded_walk_step_kernel`` and the ``psum`` a step, the state and the
-sums left on the card.  On the CPU both are the plain versions,
-``_sharded_acs_scan_ref`` and ``_sharded_traceback_ref``, rounds of PyTorch
-operations a step.
+(``Mesh.plan_exchange``: halves of the local shards in place, buffers that
+NCCL fills across processes), the penalty index computed in the kernel.
+Its two ping-pong metric buffers are half-major, ``[n, 2, B, chunk]``,
+across processes, so that each half a process sends is contiguous, and
+interleaved, ``[n, B, 2 chunk]``, in one process, which sends nothing and
+whose kernel stores a little faster so; the exchange of each parity and
+the step's launcher arguments (``shard.StepPlan``) are built before the
+first step, so a step is one launcher call and, across processes, one batch
+of transfers.  The traceback (``_walk_on_kernel``): on a CUDA device where
+every state line lies in this process, one launch of ``sharded_walk_kernel``
+for the whole decode, the words walked where they lie and the ``psum`` a
+step recorded (``Mesh.record_psums``); where a line spans processes, a step
+launch of ``sharded_walk_step_kernel`` (``shard.WalkStepPlan``) and the
+``psum`` a step, one ``all_reduce`` on a fixed buffer (``Mesh.plan_psum``),
+the state and the sums left on the card.  On the CPU both are the plain
+versions, ``_sharded_acs_scan_ref`` and ``_sharded_traceback_ref``, rounds of
+PyTorch operations a step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -162,20 +171,25 @@ def _pack_words(dec: torch.Tensor) -> torch.Tensor:
 
 
 def _on_kernel(device: torch.device) -> bool:
-    """The route of ``_sharded_acs_scan``: the kernel on a CUDA device."""
-    return device.type == "cuda"
+    """The route of ``_sharded_acs_scan``: the kernel where its launcher
+    takes the tensors (``shard._card``: a CUDA device)."""
+    return shard._card(device)
 
 
-def _sharded_acs_scan(mesh: Mesh, code: CodeSpec, numeric: NumericSpec, m_local0: torch.Tensor,
-                      sym: torch.Tensor, state_axis: str, pidx: torch.Tensor, record: bool):
-    """State-sharded ACS over ``sym [n, B, T, R]`` (each shard's symbols)
-    from local metrics ``m_local0 [n, B, n_local]``.  Returns ``(metrics,
-    dec)``, ``dec`` the packed decisions ``[T, n, B, ceil(n_local/32)]``
-    int32 if ``record`` else ``None``.  On a CUDA device one kernel launch a
-    step (``pidx`` is then computed in the kernel); on the CPU the plain
-    version."""
-    if not _on_kernel(m_local0.device):
-        return _sharded_acs_scan_ref(mesh, code, numeric, m_local0, sym, state_axis, pidx, record)
+def _current(device: torch.device):
+    """``device`` made current around a plan's launches (a CUDA device)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _plan_scan(mesh: Mesh, code: CodeSpec, numeric: NumericSpec, m_local0: torch.Tensor,
+               sym: torch.Tensor, state_axis: str, record: bool, half_major: bool):
+    """The card route's plan of a scan: ``(plan, exchanges, halves, dec)``.
+    ``halves [2, n, 2, B, chunk]`` the ping-pong metrics by half, ``m_local0``
+    in buffer 1: contiguous buffers, half-major where ``half_major``, else
+    interleaved ``[2, n, B, 2 chunk]`` viewed by half.  Step ``t`` runs
+    ``exchanges[t % 2]`` (each target's halves of buffer ``(t + 1) % 2``, in
+    place or received) and then ``plan.step(t, t % 2)``, which writes buffer
+    ``t % 2`` and ``dec[t]``."""
     n_dev = mesh.shape[state_axis]
     chunk = code.num_states // (2 * n_dev)
     n, B, n_local = m_local0.shape
@@ -184,21 +198,50 @@ def _sharded_acs_scan(mesh: Mesh, code: CodeSpec, numeric: NumericSpec, m_local0
     tables = _symbol_tables(code, numeric, sym).contiguous()  # [n, B, T, 2^R]
     dec = (torch.empty((T, n, B, -(-n_local // 32)), dtype=torch.int32, device=m_local0.device)
            if record else None)
+    if half_major:
+        halves = torch.empty((2, n, 2, B, chunk), dtype=torch.int32, device=m_local0.device)
+    else:
+        halves = torch.empty((2, n, B, 2, chunk), dtype=torch.int32,
+                             device=m_local0.device).transpose(2, 3)
+    halves[1].copy_(m_local0.reshape(n, B, 2, chunk).transpose(1, 2))
+    # Each target receives its low half from one of two moves, its high half from one of two.
+    exchanges = mesh.plan_exchange(state_axis, (perm_lo[0], perm_lo[1], perm_hi[0], perm_hi[1]),
+                                   [[halves[1 - p, :, h] for h in (0, 1, 0, 1)] for p in (0, 1)])
+    sources = []
+    for p, ex in enumerate(exchanges):
+        lo0, lo1, hi0, hi1 = ex.placed
+        sources.append(([a if a is not None else b for a, b in zip(lo0, lo1)],
+                        [a if a is not None else b for a, b in zip(hi0, hi1)], halves[p]))
     s2_base = [c * chunk for c in mesh.axis_coords(state_axis)]
-    m = m_local0.contiguous()
-    bufs = (torch.empty_like(m), torch.empty_like(m))
-    for t in range(T):
-        halves = (m[..., :chunk], m[..., chunk:])
-        lo0, lo1, hi0, hi1 = mesh.ppermute_sources(
-            state_axis, (halves[0], perm_lo[0]), (halves[1], perm_lo[1]),
-            (halves[0], perm_hi[0]), (halves[1], perm_hi[1]))
-        # Each target receives its low half from one of two moves, its high from one of two.
-        lo = [a if a is not None else b for a, b in zip(lo0, lo1)]
-        hi = [a if a is not None else b for a, b in zip(hi0, hi1)]
-        shard.sharded_acs_step(code, lo, hi, s2_base, tables, t, bufs[t % 2],
-                               dec[t] if record else None)
-        m = bufs[t % 2]
-    return m, dec
+    return shard.StepPlan(code, sources, s2_base, tables, dec), exchanges, halves, dec
+
+
+def _sharded_acs_scan(mesh: Mesh, code: CodeSpec, numeric: NumericSpec, m_local0: torch.Tensor,
+                      sym: torch.Tensor, state_axis: str, pidx: torch.Tensor, record: bool):
+    """State-sharded ACS over ``sym [n, B, T, R]`` (each shard's symbols)
+    from local metrics ``m_local0 [n, B, n_local]``.  Returns ``(metrics,
+    dec)``, ``dec`` the packed decisions ``[T, n, B, ceil(n_local/32)]``
+    int32 if ``record`` else ``None``.  On a CUDA device one kernel launch a
+    step (``pidx`` is then computed in the kernel), planned once: the metric
+    buffers half-major where the mesh spans processes (``_scan_on_card``);
+    on the CPU the plain version."""
+    if not _on_kernel(m_local0.device):
+        return _sharded_acs_scan_ref(mesh, code, numeric, m_local0, sym, state_axis, pidx, record)
+    return _scan_on_card(mesh, code, numeric, m_local0, sym, state_axis, record, mesh.world > 1)
+
+
+def _scan_on_card(mesh: Mesh, code: CodeSpec, numeric: NumericSpec, m_local0: torch.Tensor,
+                  sym: torch.Tensor, state_axis: str, record: bool, half_major: bool):
+    """The card route of ``_sharded_acs_scan`` on the plan of ``_plan_scan``:
+    a step, the exchange's run and one launcher call."""
+    plan, exchanges, halves, dec = _plan_scan(mesh, code, numeric, m_local0, sym, state_axis,
+                                              record, half_major)
+    T = sym.shape[2]
+    with _current(m_local0.device):
+        for t in range(T):
+            exchanges[t % 2].run()
+            plan.step(t, t % 2)
+    return halves[(T - 1) % 2].transpose(1, 2).reshape(m_local0.shape), dec
 
 
 def _sharded_acs_scan_ref(mesh: Mesh, code: CodeSpec, numeric: NumericSpec,
@@ -264,18 +307,22 @@ def _walk_steps(mesh: Mesh, code: CodeSpec, dec: torch.Tensor, end: torch.Tensor
     """The traceback a step at a time, for state lines that span processes:
     one launch of the step kernel (the state update from the previous
     step's sum, the owner test, the word and the bit, the previous bit into
-    the output) and one ``psum`` of ``[B]`` int32 a step.  The state and the
-    sums stay on the card: nothing waits for the host."""
+    the output) and one ``psum`` of ``[B]`` int32 a step, planned once: the
+    i-th step writes its bits to buffer ``i % 2``, whose planned ``psum`` the
+    next step reads.  The state and the sums stay on the card: nothing
+    waits for the host."""
     T, n, B, _ = dec.shape
     state = end.to(torch.int32, copy=True).contiguous()
     bits = torch.empty((n, B, T), dtype=torch.uint8, device=dec.device)
-    bit = torch.empty_like(state)
-    coords = mesh.axis_coords(state_axis)
-    k = None
-    for t in range(T - 1, -1, -1):
-        shard.sharded_walk_step(code, dec, t, state, k, coords, n_local, bits, bit)
-        k = mesh.psum(bit, state_axis)
-    bits[:, :, 0] = k
+    outs = torch.empty((2, n, B), dtype=torch.int32, device=dec.device)
+    sums = [mesh.plan_psum(outs[i], state_axis) for i in (0, 1)]
+    plan = shard.WalkStepPlan(code, dec, state, mesh.axis_coords(state_axis), n_local, bits,
+                              list(outs), [r.out for r in sums])
+    with _current(dec.device):
+        for i, t in enumerate(range(T - 1, -1, -1)):
+            plan.step(t, None if i == 0 else (i - 1) % 2, i % 2)
+            sums[i % 2].run()
+    bits[:, :, 0] = sums[(T - 1) % 2].out
     return bits
 
 

@@ -4,7 +4,10 @@ The port's counterpart of ``ka9q_viterbi_comparison_tpu/utils/chipinfo.py``.
 It detects the card with ``torch.cuda.get_device_name`` and serves the
 figures ``harness/comms.py`` reads: the HBM bytes a second and the NVLink
 egress bytes a second of one card.  On the CPU, or on a card it does not
-know, it returns the H100 SXM figures flagged ``assumed=True``.
+know, it returns the H100 SXM figures flagged ``assumed=True``.  A card
+is detected only by a part's exact device name; a name that merely
+contains a part's (an "NVIDIA H100 NVL", say) gets that part's figures
+flagged ``assumed=True``.
 
 Sources (NVIDIA's data sheets, not measurements):
 
@@ -36,7 +39,8 @@ class ChipInfo:
 H100_SXM = ChipInfo("H100 SXM", "NVIDIA H100 80GB HBM3", 3.35e12, 450e9, False)
 H100_PCIE = ChipInfo("H100 PCIe", "NVIDIA H100 PCIe", 2.0e12, 300e9, False)
 
-# lower-cased substring of the device name -> figures; the first match wins.
+# lower-cased substring of the device name -> figures; the first match wins, and is
+# detected (not assumed) only where the name is the part's own ``device_kind``.
 _KNOWN: list[tuple[str, ChipInfo]] = [
     ("h100 pcie", H100_PCIE),
     ("h100", H100_SXM),
@@ -55,13 +59,14 @@ def detect_kind() -> str | None:
 
 def resolve(kind: str | None) -> ChipInfo:
     """Figures for a device name; the H100 SXM figures, flagged ``assumed``,
-    for None or a name the table does not know."""
+    for None or a name the table does not know; a known part's figures,
+    flagged ``assumed`` unless the name is that part's exact device name."""
     if not kind:
         return _FALLBACK
     low = kind.lower()
     for sub, info in _KNOWN:
         if sub in low:
-            return dataclasses.replace(info, device_kind=kind)
+            return dataclasses.replace(info, device_kind=kind, assumed=kind != info.device_kind)
     return dataclasses.replace(_FALLBACK, device_kind=kind)
 
 

@@ -175,16 +175,26 @@ def test_models_default_to_the_h100_figures():
 
 
 def test_chip_info_resolves_the_h100():
-    for name in ("NVIDIA H100 80GB HBM3", "NVIDIA H100"):
-        info = chipinfo.resolve(name)
-        assert not info.assumed and info.device_kind == name
-        assert (info.hbm_bytes_per_s, info.ici_egress_bytes_per_s) == (3.35e12, 450e9)
+    info = chipinfo.resolve("NVIDIA H100 80GB HBM3")
+    assert not info.assumed and info.device_kind == "NVIDIA H100 80GB HBM3"
+    assert (info.hbm_bytes_per_s, info.ici_egress_bytes_per_s) == (3.35e12, 450e9)
     pcie = chipinfo.resolve("NVIDIA H100 PCIe")
     assert (pcie.hbm_bytes_per_s, pcie.ici_egress_bytes_per_s, pcie.assumed) == (2.0e12, 300e9,
                                                                                  False)
     unknown = chipinfo.resolve("NVIDIA Z900")
     assert unknown.assumed and unknown.device_kind == "NVIDIA Z900"
     assert unknown.hbm_bytes_per_s == 3.35e12
+
+
+@pytest.mark.parametrize("name", ["NVIDIA H100 NVL", "NVIDIA H100", "NVIDIA H100 PCIe 94GB"])
+def test_chip_info_flags_a_name_it_only_contains(name):
+    """A name that contains a part's but is not its exact device name gets
+    that part's figures, flagged assumed (an H100 NVL is neither part)."""
+    info = chipinfo.resolve(name)
+    part = chipinfo.H100_PCIE if "pcie" in name.lower() else chipinfo.H100_SXM
+    assert info.assumed and info.device_kind == name
+    assert (info.hbm_bytes_per_s, info.ici_egress_bytes_per_s) == (part.hbm_bytes_per_s,
+                                                                   part.ici_egress_bytes_per_s)
 
 
 def test_chip_info_on_the_cpu_is_assumed():

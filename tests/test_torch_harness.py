@@ -196,6 +196,19 @@ def test_bench_torch_script(tmp_path):
     assert line["value"] > 0
 
 
+def test_device_busy_ms_is_the_union_of_device_intervals(tmp_path):
+    """Overlapping kernels on two streams count once, host operations and
+    annotations not at all."""
+    events = [{"ph": "X", "cat": "kernel", "ts": 0.0, "dur": 100.0},
+              {"ph": "X", "cat": "kernel", "ts": 50.0, "dur": 100.0},
+              {"ph": "X", "cat": "gpu_user_annotation", "ts": 0.0, "dur": 500.0},
+              {"ph": "X", "cat": "gpu_memcpy", "ts": 300.0, "dur": 20.0},
+              {"ph": "X", "cat": "kernel", "ts": 310.0, "dur": 5.0},
+              {"ph": "X", "cat": "cpu_op", "ts": 400.0, "dur": 1000.0}]
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": events}))
+    assert profiling.device_busy_ms(str(tmp_path)) == pytest.approx(0.170)
+
+
 def test_profiling_timer_trace_and_annotate(tmp_path):
     t = profiling.Timer()
     with profiling.device_trace(str(tmp_path)) as prof:

@@ -102,6 +102,16 @@ def test_plan_raises_where_no_form_takes_the_shape():
             plk.plan(code, B, T)
 
 
+def test_plan_caps_the_batch_at_65535():
+    """A call takes at most 65535 frames (``MAX_CALL_B``, the kernels' grid y
+    extent), a recorded difference from the JAX package, which has none."""
+    pc = ported(J.VITERBI615)[0]
+    assert plk.MAX_CALL_B == 65535
+    assert plk.plan(pc, 65535, 4).launches >= 1
+    with pytest.raises(ValueError, match="at most 65535 frames a call"):
+        plk.plan(pc, 65536, 4)
+
+
 @pytest.mark.parametrize("name,B,Ts", [
     ("cassini", 2, (1, 2, 9, 16)), ("k8r5", 3, (1, 2, 7, 8)), ("k17r3", 1, (3, 4)),
     ("k18r2", 2, tuple(range(1, 17))), ("k18r3", 1, (1, 4, 5)), ("k10r7", 3, (1, 2, 9, 16)),

@@ -70,26 +70,38 @@ def _spread16(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _penalty_index(code, base, chunk):
+def _penalty_index(masks, base, chunk):
     """The kernel's ``pidx`` for the lanes of a shard's warps: the popcount
     parity of ``s2 & mask_r`` of the global ``s2 = base + s2_loc``, bit r."""
-    masks, _ = shard.step_constants(code)
     s2 = base + torch.arange(32 * -(-chunk // 32))
     return sum((_bits(s2 & m).sum(-1) & 1) << r for r, m in enumerate(masks))
 
 
-def replay(code, lo, hi, s2_base, tables, t, m_out, dec_row):
-    """The kernel's launch in plain torch, with the launcher's arguments:
-    warps of 32 lanes over ``s2_loc``, lanes past ``chunk`` masked."""
-    n, B, n_local = m_out.shape
-    chunk = n_local // 2
-    _, offs = shard.step_constants(code)
+def resolve(tensors, ptr, shape, strides, dtype=torch.int32):
+    """The view at address ``ptr`` (with ``shape`` and element ``strides``)
+    into the storage of the one of ``tensors`` that holds all of it: what a
+    kernel given that address reads and writes."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    extent = size * (1 + sum((n - 1) * st for n, st in zip(shape, strides)))
+    for x in tensors:
+        st = x.untyped_storage()
+        base = st.data_ptr()
+        if base <= ptr and ptr + extent <= base + st.nbytes() and (ptr - base) % size == 0:
+            return torch.empty(0, dtype=dtype).set_(st, (ptr - base) // size, shape, strides)
+    raise AssertionError(f"address {ptr:#x} (+{extent} bytes) lies in none of the plan's tensors")
+
+
+def _replay_rows(masks, offs, lo, hi, s2_base, tables, t, m_out, dec_row):
+    """One launch's arithmetic in plain torch: warps of 32 lanes over
+    ``s2_loc``, lanes past ``chunk`` masked; ``m_out [n, 2, B, chunk]`` by
+    half."""
+    n, _, B, chunk = m_out.shape
     warps = -(-chunk // 32)
     s2_loc = torch.arange(32 * warps)
     live = s2_loc < chunk
     src = s2_loc.clamp(max=chunk - 1)
     for j in range(n):
-        pidx = _penalty_index(code, s2_base[j], chunk)
+        pidx = _penalty_index(masks, s2_base[j], chunk)
         trow = tables[j, :, t].long()  # [B, 2^R]
         pen = [trow[:, pidx ^ c] for c in offs]  # [B, 32 warps] each
         old_lo, old_hi = lo[j].long()[:, src], hi[j].long()[:, src]
@@ -97,7 +109,7 @@ def replay(code, lo, hi, s2_base, tables, t, m_out, dec_row):
         c_hi = [wrap_int32(old_hi + pen[2 + bit]) for bit in (0, 1)]
         d = [(c_hi[bit] < c_lo[bit]) & live for bit in (0, 1)]
         new = torch.stack([torch.where(d[bit], c_hi[bit], c_lo[bit]) for bit in (0, 1)], -1)
-        m_out[j] = new.reshape(B, -1)[:, :n_local]
+        m_out[j] = new.reshape(B, -1)[:, :2 * chunk].reshape(B, 2, chunk).transpose(0, 1)
         if dec_row is None:
             continue
         lane = torch.arange(32)
@@ -105,6 +117,56 @@ def replay(code, lo, hi, s2_base, tables, t, m_out, dec_row):
         words = torch.stack([_spread16(b0 >> sh) | (_spread16(b1 >> sh) << 1) for sh in (0, 16)],
                             -1).reshape(B, 2 * warps)
         dec_row[j] = wrap_int32(words[:, :dec_row.shape[-1]])
+
+
+def replay(tensors, lo, lo_bs, hi, hi_bs, s2_base, n, masks, R, offs, table, T, t, m_out,
+           half_major, dec, B, chunk, launches):
+    """``viterbi_shard_step`` in plain torch on a plan's own launcher
+    arguments: every pointer resolved to the view it addresses in the plan's
+    ``tensors`` (the new metrics half-major or interleaved, as the flag
+    says), the frames in runs of ``MAX_B`` as the launcher issues its
+    launches, whose number it writes to ``launches[0]``."""
+    masks, offs, s2_base = tuple(masks)[:R], tuple(offs), list(s2_base)[:n]
+    lo = [resolve(tensors, lo[j], (B, chunk), (lo_bs[j], 1)) for j in range(n)]
+    hi = [resolve(tensors, hi[j], (B, chunk), (hi_bs[j], 1)) for j in range(n)]
+    tables = resolve(tensors, table, (n, B, T, 1 << R), (B * T << R, T << R, 1 << R, 1))
+    strides = (2 * B * chunk, B * chunk, chunk, 1) if half_major else (2 * B * chunk, chunk,
+                                                                       2 * chunk, 1)
+    out = resolve(tensors, m_out, (n, 2, B, chunk), strides)
+    W = -(-2 * chunk // 32)
+    dec_row = None if dec is None else resolve(tensors, dec, (n, B, W), (B * W, W, 1))
+    runs = 0
+    for b0 in range(0, B, shard.MAX_B):
+        fr = slice(b0, min(B, b0 + shard.MAX_B))
+        _replay_rows(masks, offs, [x[fr] for x in lo], [x[fr] for x in hi], s2_base,
+                     tables[:, fr], t, out[:, :, fr], None if dec_row is None else dec_row[:, fr])
+        runs += 1
+    launches[0] = runs
+
+
+def fake_binder(replays, seen):
+    """A ``shard._bind`` that binds each launcher to its replay
+    (``replays``: launcher name -> fn(tensors, *args)); every call is appended
+    to ``seen`` as (launcher, args) and counted as ``_build.Bound`` counts:
+    one launch, or what the replay reported."""
+    def bind(counter, fn_name, device, tensors, reported=None):
+        def call(*args):
+            seen.append((fn_name, args))
+            replays[fn_name](tensors, *args)
+            _build.LAUNCHES[counter] += 1 if reported is None else reported.value
+        return call
+    return bind
+
+
+def pin_card_route(monkeypatch, replays):
+    """CPU tensors routed as on a card: the launchers' device test true,
+    which is also the scan's route (``statewise._on_kernel``), the plans'
+    launchers bound to ``replays``.  Returns the calls the plans made,
+    (launcher, args)."""
+    seen = []
+    monkeypatch.setattr(shard, "_card", lambda device: True)
+    monkeypatch.setattr(shard, "_bind", fake_binder(replays, seen))
+    return seen
 
 
 def _step_inputs(code, axes, B, T, near, seed):
@@ -130,17 +192,20 @@ def _pidx(code, mesh):
 
 @pytest.fixture
 def card_route(monkeypatch):
-    """CPU tensors routed as on a card (``_on_kernel`` true), the launcher
-    replaced by the replay; returns the steps it was called for."""
-    calls = []
+    """CPU tensors routed as on a card (``shard._card`` true), the step
+    plan's launcher replaced by the replay; returns the steps it was called
+    for."""
+    return pin_card_route(monkeypatch, {"viterbi_shard_step": replay})
 
-    def fake_launch(code, lo, hi, s2_base, tables, t, m_out, dec_row):
-        calls.append(t)
-        replay(code, lo, hi, s2_base, tables, t, m_out, dec_row)
 
-    monkeypatch.setattr(statewise, "_on_kernel", lambda device: True)
-    monkeypatch.setattr(shard, "sharded_acs_step", fake_launch)
-    return calls
+def launched_steps(seen) -> list[int]:
+    """The step of each call of the step plan's launcher, in order."""
+    return [args[11] for fn, args in seen if fn == "viterbi_shard_step"]
+
+
+def launched_layouts(seen) -> set[int]:
+    """The metric layouts the step plan's launcher was called with (1: half-major)."""
+    return {args[13] for fn, args in seen if fn == "viterbi_shard_step"}
 
 
 def test_step_constants_are_the_plain_versions():
@@ -163,11 +228,27 @@ def test_replayed_scan_equals_plain_scan(card_route, case, steps, record):
     args = (mesh, code, P.soft16_spec(code.R), m0, sym, "state", _pidx(code, mesh), record)
     m_k, d_k = statewise._sharded_acs_scan(*args)
     m_r, d_r = statewise._sharded_acs_scan_ref(*args)
-    assert card_route == list(range(T))
+    assert launched_steps(card_route) == list(range(T))
+    assert launched_layouts(card_route) == {0}  # one process: interleaved
     assert torch.equal(m_k, m_r)
     assert (d_k is None and d_r is None) if not record else torch.equal(d_k, d_r)
     if near:
         assert (m_r < 0).any()  # some adds wrapped
+
+
+@pytest.mark.parametrize("half_major", [False, True], ids=["interleaved", "half-major"])
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_replayed_scan_equals_plain_scan_in_each_layout(card_route, case, half_major):
+    """The card's scan on each metric layout (``_scan_on_card``: interleaved
+    as in one process, half-major as across processes) with the replayed
+    kernel against the plain scan: metrics and every word."""
+    code, axes, B, T, near = case
+    mesh, m0, sym = _step_inputs(code, axes, B, T, near, code.K * B + 2)
+    args = (mesh, code, P.soft16_spec(code.R), m0, sym, "state")
+    m_k, d_k = statewise._scan_on_card(*args, True, half_major)
+    m_r, d_r = statewise._sharded_acs_scan_ref(*args, _pidx(code, mesh), True)
+    assert launched_layouts(card_route) == {int(half_major and B > 1)}  # B=1: one memory
+    assert torch.equal(m_k, m_r) and torch.equal(d_k, d_r)
 
 
 def test_cpu_route_is_the_plain_version(monkeypatch):
@@ -175,7 +256,7 @@ def test_cpu_route_is_the_plain_version(monkeypatch):
     def refuse(*a):
         raise AssertionError("the launcher was reached on the CPU")
 
-    monkeypatch.setattr(shard, "sharded_acs_step", refuse)
+    monkeypatch.setattr(shard, "_bind", refuse)
     assert statewise._on_kernel(torch.device("cuda")) and statewise._on_kernel(
         torch.device("cuda", 0)) and not statewise._on_kernel(torch.device("cpu"))
     _, sym = _frames(P.VITERBI29, "noisy")
@@ -300,7 +381,7 @@ def test_card_route_state_sharded_matches_jax(card_route, code, n_bytes, n_dev):
         par.state_sharded_decode_bits(code, numeric, sym, mesh)))
     bits = out[0]
     T = sym.shape[1]
-    assert card_route == list(range(T))
+    assert launched_steps(card_route) == list(range(T))
     np.testing.assert_array_equal(bits.numpy(), _jax_state_sharded(code, n_bytes, n_dev))
     model = comms.statewise_model(code, n_dev, 6, T)
     perms = [c for c in rep.collectives if c.prim == "ppermute"]
@@ -324,7 +405,7 @@ def test_card_route_state_time_matches_jax(card_route, n_state, n_time):
         par.state_time_decode_bits(code, numeric, padded, mesh, overlap=OL)))
     bits = out[0]
     Tb = padded.shape[1] // n_time
-    assert card_route == list(range(OL)) + list(range(Tb + OL))
+    assert launched_steps(card_route) == list(range(OL)) + list(range(Tb + OL))
     np.testing.assert_array_equal(bits.numpy(), _jax_state_time(n_state, n_time))
     model = comms.state_time_model(code, n_state, n_time, 6, padded.shape[1], overlap=OL)
     sperms = [c for c in rep.collectives if c.prim == "ppermute" and c.axes == ("state",)]
@@ -401,7 +482,11 @@ def test_two_gloo_processes_read_in_place_and_received(tmp_path):
     """State x time on (state=2, time=2) and state sharding on state=4 over
     two processes, two shards each, on the card's route with the replayed
     kernel: every launch reads some chunks in place and some received; bits
-    equal the JAX package's; one launch a step."""
+    equal the JAX package's; one launch a step, on half-major metrics.  The
+    plan is built once a scan: one launcher bound a scan, a fixed set of
+    ``P2POp``s whatever the steps, every step of a parity reading the same
+    addresses.  The planned
+    exchange equals ``ppermute_sources`` and the plain exchange."""
     _, sym = _all_frames(P.VITERBI29, 32)
     padded, _ = par.pad_to_time_blocks(P.VITERBI29, P.soft8_spec(2), torch.from_numpy(sym), 2)
     np.savez(tmp_path / "input.npz", sym=sym, padded=padded.numpy())
@@ -429,36 +514,83 @@ def test_two_gloo_processes_read_in_place_and_received(tmp_path):
         np.testing.assert_array_equal(o["state_sharded"], _jax_state_sharded(P.VITERBI29, 32, 4))
         assert list(o["launches"]) == [32 + Tb + 32, sym.shape[1]]
         assert o["in_place"].all() and o["received"].all()
+        assert o["half_major"].all()  # across processes each half sent is contiguous
+        # Plans a decode (state x time: warm-up and main scans), P2POps built, and the
+        # distinct source addresses of a scan's steps (one set a parity).
+        assert list(o["plans"]) == [2, 1]
+        assert 0 < o["p2p_ops"][0] < 32 and 0 < o["p2p_ops"][1] < sym.shape[1]
+        assert list(o["addresses"]) == [2, 2, 2]
+        assert o["exchange_equal"].all()
 
 
 def _gloo_worker(rank: int, world: int, init: str, out_dir: pathlib.Path) -> None:
     """One process of the gloo case: the card's route with the replay,
-    counting each launch's chunks read in place (the operand's half, batch
-    stride ``2 chunk``) and received (a buffer, batch stride ``chunk``)."""
+    counting each launch's chunks read in place (a half of the scan's own
+    buffers) and received (a receive buffer, a storage of one ``[B,
+    chunk]`` chunk), the plans bound, the ``P2POp``s built and each scan's
+    distinct source addresses; then the planned exchange against
+    ``ppermute_sources`` and the plain exchange on random metrics."""
     from ka9q_viterbi_comparison_tpu_torch.parallel import multihost
 
     multihost.initialize(init, world, rank, device="cpu")
     inp = np.load(out_dir / "input.npz")
-    seen = []
+    seen, scans, p2p = [], [], [0]
 
-    def launch(code, lo, hi, s2_base, tables, t, m_out, dec_row):
-        chunk = m_out.shape[-1] // 2
-        strides = [x.stride(0) for x in lo + hi]
-        seen.append((2 * chunk in strides, chunk in strides))
-        replay(code, lo, hi, s2_base, tables, t, m_out, dec_row)
+    def launch(tensors, *args):
+        lo, hi, n, B, chunk = args[0], args[2], args[5], args[15], args[16]
+        sizes = [resolve(tensors, a[j], (B, chunk), (chunk, 1)).untyped_storage().nbytes()
+                 for a in (lo, hi) for j in range(n)]
+        seen.append((any(z != 4 * B * chunk for z in sizes), 4 * B * chunk in sizes, args[13]))
+        scans[-1].add(tuple(a[j] for a in (lo, hi) for j in range(n)))
+        return replay(tensors, *args)
 
-    statewise._on_kernel = lambda device: True
-    shard.sharded_acs_step = launch
+    bind = fake_binder({"viterbi_shard_step": launch}, [])
+
+    def counted_bind(*a):
+        scans.append(set())
+        return bind(*a)
+
+    class CountedP2POp(torch.distributed.P2POp):
+        def __init__(self, *a, **k):
+            p2p[0] += 1
+            super().__init__(*a, **k)
+
+    shard._card = lambda device: True
+    shard._bind = counted_bind
+    mesh_mod.dist.P2POp = CountedP2POp
     code, numeric = P.VITERBI29, P.soft8_spec(2)
     st = par.state_time_decode_bits(code, numeric, torch.from_numpy(inp["padded"]),
                                     par.Mesh({"state": 2, "time": 2}, "cpu"), overlap=32)
-    n_st = len(seen)
+    n_st, plans_st, p2p_st = len(seen), len(scans), p2p[0]
     sw = par.state_sharded_decode_bits(code, numeric, torch.from_numpy(inp["sym"]),
                                        par.Mesh({"state": 4}, "cpu"))
+    exchange_equal = []
+    for axes in ({"state": 4}, {"state": 2, "time": 2}):
+        mesh = par.Mesh(axes, "cpu")
+        chunk = code.num_states // (2 * axes["state"])
+        m = torch.from_numpy(np.random.default_rng(mesh.size).integers(
+            -1000, 1000, size=(mesh.size, 3, 2 * chunk)).astype(np.int32))[
+            mesh.first:mesh.first + mesh.n_local]
+        perm_lo, perm_hi = statewise.butterfly_perms(axes["state"])
+        perms = (perm_lo[0], perm_lo[1], perm_hi[0], perm_hi[1])
+        lo, hi = statewise._exchange(mesh, m, chunk, "state", perm_lo, perm_hi)
+        halves = (m[..., :chunk], m[..., chunk:])
+        one = mesh.ppermute_sources("state", *zip((halves[0], halves[1]) * 2, perms))
+        by_half = m.reshape(mesh.n_local, 3, 2, chunk).transpose(1, 2).contiguous()
+        planned, = mesh.plan_exchange("state", perms, [[by_half[:, h] for h in (0, 1, 0, 1)]])
+        planned.run()
+        for placed in (one, planned.placed):
+            for j in range(mesh.n_local):
+                for want, pair in ((lo[j], placed[0:2]), (hi[j], placed[2:4])):
+                    got = [x[j] for x in pair if x[j] is not None]
+                    exchange_equal.append(len(got) == 1 and torch.equal(got[0], want))
     torch.distributed.destroy_process_group()
     np.savez(out_dir / f"rank{rank}.npz", state_time=st.numpy(), state_sharded=sw.numpy(),
              launches=[n_st, len(seen) - n_st], in_place=[s[0] for s in seen],
-             received=[s[1] for s in seen])
+             received=[s[1] for s in seen], half_major=[s[2] for s in seen],
+             plans=[plans_st, len(scans) - plans_st],
+             p2p_ops=[p2p_st, p2p[0] - p2p_st], addresses=[len(a) for a in scans],
+             exchange_equal=exchange_equal)
     print(f"SHARD_WORKER_OK rank={rank}")
 
 

@@ -46,7 +46,7 @@ from ka9q_viterbi_comparison_tpu_torch.ops.cuda import _build, shard
 from ka9q_viterbi_comparison_tpu_torch.parallel import mesh as mesh_mod
 from ka9q_viterbi_comparison_tpu_torch.parallel import statewise
 from test_torch_shard_kernel import (K17, ST_MESHES, SW_SHAPES, _all_frames, _jax_state_sharded,
-                                     _jax_state_time)
+                                     _jax_state_time, fake_binder, pin_card_route, resolve)
 from test_torch_shard_kernel import replay as replay_scan
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -104,14 +104,14 @@ def replay_walk(code, dec, end, lines, n_local):
     return bits
 
 
-def replay_step(code, dec, t, state, ksum, coords, n_local, bits, bit_out):
+def replay_step(K, dec, t, state, ksum, coords, n_local, bits, bit_out):
     """``sharded_walk_step``'s launch in plain torch, a thread a (shard, frame)."""
     _, n, B, _ = dec.shape
     st, sn, sb, _ = dec.stride()
     lg = n_local.bit_length() - 1
     if ksum is not None:
         bits[:, :, t + 1] = ksum.to(torch.uint8)
-        state.copy_((state >> 1) | (ksum << (code.K - 2)))
+        state.copy_((state >> 1) | (ksum << (K - 2)))
     own = (state >> lg) == torch.tensor(coords, dtype=torch.int32)[:, None]
     loc = state.long() & ((1 << lg) - 1)
     off = t * st + torch.arange(n)[:, None] * sn + torch.arange(B)[None] * sb + (loc >> 5)
@@ -119,10 +119,22 @@ def replay_step(code, dec, t, state, ksum, coords, n_local, bits, bit_out):
     bit_out.copy_(torch.where(own, (word >> (loc & 31)) & 1, 0))
 
 
-@pytest.fixture
-def walk_route(monkeypatch):
-    """CPU tensors routed as on a card (``_walk_on_kernel`` true), both
-    launchers replaced by their replays; returns the launches by counter."""
+def replay_step_launch(tensors, dec, st, sn, sb, state, ksum, bits, bit_out, coords, n, lg, K, B,
+                       T, t):
+    """``viterbi_shard_walk_step`` in plain torch on a plan's own launcher
+    arguments, every pointer resolved to the view it addresses in the plan's
+    ``tensors``."""
+    dec = resolve(tensors, dec, (T, n, B, -(-(1 << lg) // 32)), (st, sn, sb, 1))
+    ksum = None if ksum is None else resolve(tensors, ksum, (n, B), (B, 1))
+    replay_step(K, dec, t, resolve(tensors, state, (n, B), (B, 1)), ksum, list(coords)[:n],
+                1 << lg, resolve(tensors, bits, (n, B, T), (B * T, T, 1), torch.uint8),
+                resolve(tensors, bit_out, (n, B), (B, 1)))
+
+
+def walk_routes(monkeypatch):
+    """Both walk routes pinned: ``_walk_on_kernel`` true, ``sharded_walk``
+    replaced by its replay and the step plan's launcher bound to the step's;
+    returns the launches by counter."""
     calls = {"sharded_traceback": 0, "sharded_traceback_step": 0}
 
     def walk(*args):
@@ -131,11 +143,20 @@ def walk_route(monkeypatch):
 
     def step(*args):
         calls["sharded_traceback_step"] += 1
-        replay_step(*args)
+        replay_step_launch(*args)
 
     monkeypatch.setattr(statewise, "_walk_on_kernel", lambda device: True)
     monkeypatch.setattr(shard, "sharded_walk", walk)
-    monkeypatch.setattr(shard, "sharded_walk_step", step)
+    return calls, step
+
+
+@pytest.fixture
+def walk_route(monkeypatch):
+    """CPU tensors routed as on a card (``_walk_on_kernel`` true), both
+    launchers replaced by their replays; returns the launches by counter."""
+    calls, step = walk_routes(monkeypatch)
+    monkeypatch.setattr(shard, "_card", lambda device: True)
+    monkeypatch.setattr(shard, "_bind", fake_binder({"viterbi_shard_walk_step": step}, []))
     return calls
 
 
@@ -236,11 +257,12 @@ def test_cpu_route_is_the_plain_version(monkeypatch):
 
 
 @pytest.fixture
-def card_route(walk_route, monkeypatch):
+def card_route(monkeypatch):
     """The whole decode on the card's route: the scan's kernel replayed too."""
-    monkeypatch.setattr(statewise, "_on_kernel", lambda device: True)
-    monkeypatch.setattr(shard, "sharded_acs_step", replay_scan)
-    return walk_route
+    calls, step = walk_routes(monkeypatch)
+    pin_card_route(monkeypatch, {"viterbi_shard_step": replay_scan,
+                                 "viterbi_shard_walk_step": step})
+    return calls
 
 
 @pytest.mark.parametrize("code,n_bytes,n_dev", SW_SHAPES,
@@ -404,8 +426,10 @@ def test_two_gloo_processes_walk_across_and_within(gloo_run):
 
 
 def test_two_gloo_processes_reduce_as_before(gloo_run):
-    """``psum``, ``pmin`` and ``all_gather`` over the state axis equal plain
-    reductions of the global data along each line."""
+    """``psum``, ``pmin``, ``all_gather`` and the planned ``psum`` (its
+    second run, on new contents of its buffer) over the state axis equal
+    plain reductions of the global data along each line; the planned
+    ``psum`` records one ``psum`` a run."""
     outs, _ = gloo_run
     for i, axes in enumerate(REDUCE_MESHES):
         mesh = par.Mesh(axes, "cpu")
@@ -414,9 +438,11 @@ def test_two_gloo_processes_reduce_as_before(gloo_run):
         want_sum = np.stack([x[lines[s]].sum(0) for s in range(mesh.size)])
         want_min = np.stack([x[lines[s]].min(0) for s in range(mesh.size)])
         want_all = np.stack([x[lines[s]] for s in range(mesh.size)])
-        for name, want in (("psum", want_sum), ("pmin", want_min), ("all_gather", want_all)):
+        for name, want in (("psum", want_sum), ("pmin", want_min), ("all_gather", want_all),
+                           ("planned_psum", want_sum)):
             got = np.concatenate([o[f"{name}{i}"] for o in outs])
             np.testing.assert_array_equal(got, want, err_msg=f"{name} on {axes}")
+        assert all(o[f"planned_psum_calls{i}"].all() for o in outs)
 
 
 def _reduce_data(size):
@@ -440,7 +466,10 @@ def _gloo_worker(rank: int, world: int, init: str, out_dir: pathlib.Path) -> Non
 
     statewise._walk_on_kernel = lambda device: True
     shard.sharded_walk = counted("sharded_traceback", replay_walk)
-    shard.sharded_walk_step = counted("sharded_traceback_step", replay_step)
+    shard._card = lambda device: True  # the scan's route too: its kernel replayed
+    shard._bind = fake_binder({"viterbi_shard_step": replay_scan,
+                               "viterbi_shard_walk_step": counted("sharded_traceback_step",
+                                                                  replay_step_launch)}, [])
     code, numeric = P.VITERBI29, P.soft8_spec(2)
     padded = torch.from_numpy(inp["padded"])
     Tb = padded.shape[1] // 2
@@ -465,6 +494,15 @@ def _gloo_worker(rank: int, world: int, init: str, out_dir: pathlib.Path) -> Non
         mesh = par.Mesh(axes, "cpu")
         x = torch.from_numpy(_reduce_data(mesh.size))[mesh.first:mesh.first + mesh.n_local]
         out[f"psum{i}"] = mesh.psum(x, "state").numpy()
+        planned = mesh.plan_psum(torch.zeros_like(x), "state")
+        for data in (x.flip(-1), x):  # a second run sums the buffer's new contents
+            planned.x.copy_(data)
+            with mesh_mod.recording() as calls:
+                got = planned.run()
+            with mesh_mod.recording() as want:
+                mesh.record_psums(x, "state", 1)
+            out[f"planned_psum{i}"] = got.numpy()
+            out[f"planned_psum_calls{i}"] = [calls == want]
         out[f"pmin{i}"] = mesh.pmin(x, "state").numpy()
         out[f"all_gather{i}"] = mesh.all_gather(x, "state").numpy()
     torch.distributed.destroy_process_group()
