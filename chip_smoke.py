@@ -26,7 +26,12 @@ steps of path 9's state-sharded decode and 2 steps of its state x time
 shape; the state-sharded traceback's walk, ``sharded_traceback``, one launch
 a decode, and its step kernel, ``sharded_traceback_step``, one launch a step
 where a state line spans processes, on the words of each of those scans and
-on the whole words of path 9's two ICE decodes), then drives nine paths --
+on the whole words of path 9's two ICE decodes; and every output form of the
+two tracebacks -- bits of a range of steps, data bytes, into a view with a
+row stride, the end state as the argmin of ``[S, B]`` and ``[B, S]``
+metrics, a start step a frame -- against the words form and the plain
+conversion, at K=7 B=64 and B=512, a K=7 window at an odd ``t0``, K=9 soft16
+B=512, Cassini B=64 and B=256 and ICE B=8), then drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
 harness and the sharded decodes of ``parallel`` -- each with the launch
@@ -68,8 +73,12 @@ counts zeroed just before it and read just after:
   2046 steps, Cassini soft8 at B=256 in 4 pushes of 2044 steps: the released
   bits equal the data, a decoder restored from a checkpoint taken after the
   second push releases the same bits, two noisy pushes equal
-  ``backend="torch"``'s; the steady-state push rate beside the batch update
-  rate of the same code and batch;
+  ``backend="torch"``'s; the steady-state push rate and the host's
+  microseconds to issue a push beside the batch update rate of the same code
+  and batch (a push is the symbols' layout copy, the update into the
+  stream's window, the walk that takes the argmin and writes the released
+  bits, and the retained rows' copy: its device operations are traced at the
+  end);
 * the AWGN and replica path: a BER point at VITERBI27 soft16, B=512,
   256-byte frames, 3 dB on the kernels through the curve CLI's own function
   (``harness.ber_curve.main``; coded BER below uncoded); the
@@ -93,7 +102,8 @@ counts zeroed just before it and read just after:
   and the unsharded decode, noisy time-block bits the CPU's; each case
   prints its time, its collectives counted by
   ``harness.comms.collective_trace`` held against the analytic model, and
-  its launches.  One card runs every shard, so the times are the shard
+  its launches (the time-block shard body's device operations are traced
+  at the end).  One card runs every shard, so the times are the shard
   plumbing's cost, not scaling.
 
 After the paths, the in-place envelope's canary of ``harness/hw_check.py``
@@ -113,7 +123,9 @@ bound; the walk alone on path 9's two ICE decodes' words beside its latency
 bound, and those decodes split into scan and traceback, with the host's
 microseconds a step beside the device's and the idle share of one traced
 run), and
-counts the launches a call of the state-order and large-K updates
+times the tracebacks' bits, bytes and argmin forms beside their words
+rows, counts their launches by form over the nine paths, and counts the
+launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
 chip) and the device operations of a steady stream push from a profiler
 trace.  Every number line carries the card's name and power limit.  The last three lines
@@ -127,6 +139,7 @@ port's package beside it.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -158,7 +171,7 @@ from ka9q_viterbi_comparison_tpu_torch import (  # noqa: E402
     soft16_spec,
 )
 from ka9q_viterbi_comparison_tpu_torch import parallel  # noqa: E402
-from ka9q_viterbi_comparison_tpu_torch.parallel import statewise  # noqa: E402
+from ka9q_viterbi_comparison_tpu_torch.parallel import statewise, timeblock  # noqa: E402
 from ka9q_viterbi_comparison_tpu_torch.harness import (  # noqa: E402
     ber_curve,
     check_results,
@@ -368,6 +381,106 @@ def check(name: str, err: int) -> int:
     return err
 
 
+def form_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest difference of two outputs of one shape (bits, bytes or words
+    as their integers); a shape mismatch counts as 2^32."""
+    if a.shape != b.shape:
+        return 1 << 32
+    if torch.equal(a, b):
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+FORM_ERRS: dict[str, int] = {"chainback_tb": 0, "chainback_inplace": 0}  # forms held while timing
+
+
+def form_bound_ms(B, T, rotated, out_bytes, metric_bytes=0) -> tuple[float, str]:
+    """``chainback_bound_ms`` with the form's output in place of the words
+    (a byte a step, a byte a data byte) and, for the argmin form, the
+    frame's metrics read once."""
+    nbytes = 4 * B * (T + 1) + out_bytes + metric_bytes
+    return bound(nbytes, B * T * (11 if rotated else 8))
+
+
+def form_rows(tag, rows, name, args, shape):
+    """Row 2's or row 4's output forms timed on the arguments of its words
+    row (CUDA events, 20 launches after a warm-up), beside their bounds:
+    ``bits`` of every step, the data ``bytes``, the bytes from the argmin of
+    the frame's ``[S, B]`` metrics."""
+    code, dec, end, T = args[:4]
+    extra, rotated = args[4:], name == "chainback_inplace"
+    fn = kernels.chainback_tb if not rotated else inplace.chainback_inplace
+    B, lo = dec.shape[2], code.K - 1
+    nb = (T - lo) // 8 * 8
+    m = metrics0(code, soft8_spec(code.R), B)
+    forms = {}
+    for form, call, out_bytes, mb in (
+            ("bits", lambda: fn(code, dec, end, T, *extra, "bits", 0, T), B * T, 0),
+            ("bytes", lambda: fn(code, dec, end, T, *extra, "bytes", lo, lo + nb), B * nb // 8, 0),
+            ("bytes from the argmin",
+             lambda: fn(code, dec, None, T, *extra, "bytes", lo, lo + nb, metrics=m),
+             B * nb // 8, 4 * B * code.num_states)):
+        ms = timed_ms(call, 20)
+        bnd = form_bound_ms(B, T, rotated, out_bytes, mb)
+        forms[form] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"[{tag}] {name} {shape} {form} form: kernel {ms:.4f} ms = "
+              f"{1e6 * ms / T:.1f} ns a step (words form {rows[name]['ms']:.4f} ms), bound "
+              f"{bnd[0]:.6f} ms ({bnd[1]})")
+    rows[name]["forms"] = forms
+
+
+def hold_forms(label, name, code, dec, end, t_real, errs, *extra):
+    """Every output and end-state form of the traceback ``name`` (row 2's
+    ``chainback_tb`` or row 4's ``chainback_inplace``, ``extra`` its ``t0``)
+    against its words form and the plain conversion on the card: the bits of
+    steps ``[0, t_real)`` and of a cut that splits chunks, the data bytes,
+    bits into a view with a row stride, the end state as the argmin of tied
+    metrics ``[S, B]`` and of a ``[B, S]`` view (against the words form from
+    ``argmin_states``' end states), and a start step a frame (against the
+    words form over the words zeroed from that step on, from state 0).  No
+    whole-frame plain run: the words form was held to it already."""
+    fn = kernels.chainback_tb if name == "chainback_tb" else inplace.chainback_inplace
+    B, K = dec.shape[2], code.K
+    bits = dispatch.unpack_bit_words(fn(code, dec, end, t_real, *extra), t_real)
+    lo, nb = K - 1, (t_real - K + 1) // 8 * 8
+    errs_here = [
+        form_err(fn(code, dec, end, t_real, *extra, "bits", 0, t_real), bits),
+        form_err(fn(code, dec, end, t_real, *extra, "bits", 5, t_real - 3), bits[:, 5:t_real - 3]),
+        form_err(fn(code, dec, end, t_real, *extra, "bytes", lo, lo + nb),
+                 bits_to_bytes(bits[:, lo:lo + nb]))]
+    big = torch.full((B, t_real + 16), 7, dtype=torch.uint8, device="cuda")
+    fn(code, dec, end, t_real, *extra, "bits", 0, t_real, out=big[:, 8:8 + t_real])
+    errs_here.append(form_err(big[:, 8:8 + t_real], bits)
+                     + int((big[:, :8] != 7).sum() + (big[:, 8 + t_real:] != 7).sum()))
+    g = torch.Generator(device="cuda").manual_seed(SEED + t_real)
+    m = torch.randint(0, 3, (code.num_states, B), dtype=torch.int32, device="cuda", generator=g)
+    phase = (extra[0] + t_real) % (K - 1) if extra else 0
+    ref = fn(code, dec, kernels.argmin_states(code, m, phase).reshape(1, B), t_real, *extra)
+    for mm in (m, m.T.contiguous().T):
+        errs_here.append(form_err(fn(code, dec, None, t_real, *extra, metrics=mm,
+                                     metrics_phase=phase)[:-(-t_real // 32)],
+                                  ref[:-(-t_real // 32)]))
+    errs_here.append(form_err(
+        fn(code, dec, None, t_real, *extra, "bytes", lo, lo + nb, metrics=m, metrics_phase=phase),
+        bits_to_bytes(dispatch.unpack_bit_words(ref, t_real)[:, lo:lo + nb])))
+    del m
+    start = torch.randint(0, t_real + 8, (B,), dtype=torch.int32, device="cuda", generator=g)
+    live = torch.arange(dec.shape[0], device="cuda")[:, None, None] < start
+    zeroed = torch.where(live, dec, torch.zeros((), dtype=dec.dtype, device="cuda"))
+    ref = fn(code, zeroed, torch.where(start < t_real, 0, end.reshape(B)).reshape(1, B), t_real,
+             *extra)
+    del zeroed, live
+    nw = -(-t_real // 32)
+    errs_here += [form_err(fn(code, dec, end, t_real, *extra, start=start)[:nw], ref[:nw]),
+                  form_err(fn(code, dec, end, t_real, *extra, "bits", 0, t_real, start=start),
+                           dispatch.unpack_bit_words(ref, t_real))]
+    torch.cuda.synchronize()
+    err = max(errs_here)
+    print(f"{name} {label} output forms (bits, a cut, bytes, a row stride, argmin [S, B] and "
+          f"[B, S], argmin bytes, start step words and bits) vs the words form: max_abs_err {err}")
+    errs[name] = max(errs[name], check(f"{name} {label} forms", err))
+
+
 # The plain versions take seconds a frame, so a shape that is both compared
 # and timed runs its plain version once: the comparison keeps its inputs and
 # the plain version's time here under (kernel, row key), and ``kernel_row``
@@ -439,6 +552,8 @@ def phase_kernels(tag, rng):
         e = compare_walk(f"chainback_tb {label}", kernels.chainback_tb, kernels.chainback_tb_ref,
                          (CODE, d, end, T), T, keep("chainback_tb"))
         errs["chainback_tb"] = max(errs["chainback_tb"], e)
+        if "chainback_tb" in timed:
+            hold_forms(label, "chainback_tb", CODE, d, end, T, errs)
         e, (_, d) = compare_update(f"acs_update_inplace {label}", inplace.acs_update_inplace,
                                    inplace.acs_update_inplace_ref, (CODE, numeric, m0, s, T, 0), T,
                                    keep("acs_update_inplace"))
@@ -447,6 +562,8 @@ def phase_kernels(tag, rng):
                          inplace.chainback_inplace_ref, (CODE, d, end, T, 0), T,
                          keep("chainback_inplace"))
         errs["chainback_inplace"] = max(errs["chainback_inplace"], e)
+        if "chainback_inplace" in timed:
+            hold_forms(label, "chainback_inplace", CODE, d, end, T, errs, 0)
         return s, m0
 
     run_pairs(soft8, B_TB, 4, f"soft8 B={B_TB}", ("acs_update_tb", "chainback_tb"))
@@ -466,6 +583,7 @@ def phase_kernels(tag, rng):
     end = torch.zeros((1, B_INPLACE), dtype=torch.int32, device="cuda")
     e3 = compare_walk(f"chainback_inplace window t0={T1}", inplace.chainback_inplace,
                       inplace.chainback_inplace_ref, (CODE, d2, end, T - T1, T1), T - T1)
+    hold_forms(f"window t0={T1}", "chainback_inplace", CODE, d2, end, T - T1, errs, T1)
     whole = torch.cat([d1[:T1], d2[:T - T1]])
     e4 = compare_walk("chainback_inplace over both blocks", inplace.chainback_inplace,
                       inplace.chainback_inplace_ref, (CODE, whole, end, T, 0), T)
@@ -527,6 +645,7 @@ def phase_kernels_large(tag, rng, errs):
     note("chainback_tb", compare_walk(f"chainback_tb cassini B={B_CAS_LARGE}", kernels.chainback_tb,
                                       kernels.chainback_tb_ref, (cas, w, end, T), T,
                                       ("chainback_tb", "k15")))
+    hold_forms(f"cassini B={B_CAS_LARGE}", "chainback_tb", cas, w, end, T, errs)
     del words, w
     # soft16: int32 storage, no renormalisation; time-major words.
     s16 = soft16_spec(6)
@@ -588,6 +707,7 @@ def phase_kernels_large(tag, rng, errs):
                                            inplace.chainback_inplace,
                                            inplace.chainback_inplace_ref,
                                            (cas, d, end, T, 0), T, ("chainback_inplace", "k15")))
+    hold_forms(f"cassini B={B_CAS_INPLACE}", "chainback_inplace", cas, d, end, T, errs, 0)
     near_limit(rng, errs)
     torch.cuda.empty_cache()
     print(f"[{tag}] large-K kernels and K=15 shapes vs plain versions: all bit-identical")
@@ -761,6 +881,7 @@ def phase_kernels_walk(tag, rng, errs):
     note("chainback_tb", f"ice B={B} T={T} (batch-major words in place)",
          kernels.chainback_tb(*args),
          timed_plain(kernels.chainback_tb_ref, args, {}, ("chainback_tb", "ice")))
+    hold_forms(f"ice B={B} T={T}", "chainback_tb", *args, errs)
     w16 = probe_walk.random_words(K16, 50, 3, g).transpose(0, 1).contiguous()  # [B, T, W]
     e16 = end[:3].reshape(1, 3) & (K16.num_states - 1)
     for dec in (w16.permute(1, 2, 0), w16.permute(1, 2, 0).contiguous()):
@@ -1538,12 +1659,18 @@ def drive_stream(tag, rng, code, B, n, pushes, kernels_of_path):
     dec = StreamingDecoder(code, numeric, B)
     out, state = [], None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host = []  # the host's microseconds to issue each timed push
     for i in range(pushes):
         if i == 2:
             start.record()
+            gc0 = gc.get_stats()[2]["collections"]
+        t_host = time.perf_counter()
         out.append(dec.push(clean[:, i * n:(i + 1) * n]))
+        host.append(1e6 * (time.perf_counter() - t_host))
         if i == 1:
             state = dec.checkpoint()
+    host, gen2 = host[2:], gc.get_stats()[2]["collections"] - gc0
+    host_us = sum(host) / len(host)
     end.record()
     out.append(dec.flush(0))
     resumed = StreamingDecoder(code, numeric, B)
@@ -1580,7 +1707,10 @@ def drive_stream(tag, rng, code, B, n, pushes, kernels_of_path):
           f"{errors}, all equal to the data {whole}; restored after push 2: equal {same_resumed}; "
           f"2 noisy pushes ({where}) equal to backend=torch {same_noisy}; steady state "
           f"{(pushes - 2)} pushes in {steady_ms:.4f} ms = {steady_ms / (pushes - 2):.4f} ms a push "
-          f"= {rate:.1f} Msym/s; batch update {upd_ms:.4f} ms = {batch_rate:.1f} Msym/s")
+          f"= {rate:.1f} Msym/s (host {host_us:.1f} us to issue a push: median "
+          f"{float(np.median(host)):.1f}, most {max(host):.1f}; {gen2} full garbage collections "
+          f"among them); batch update "
+          f"{upd_ms:.4f} ms = {batch_rate:.1f} Msym/s")
     if errors or not (whole and same_resumed and same_noisy):
         raise SystemExit(f"FAIL: stream {label}")
     del dec, resumed, noisy_dec, clean, noisy
@@ -1935,6 +2065,7 @@ def unsharded_decode(code, numeric, sym, nbits):
 def phase_decode(tag, rng, errs):
     """The nine paths; returns the launches of each kernel summed over the
     paths (``errs`` takes path 8's comparisons of the u8 kernel)."""
+    forms0 = dict(_build.FORM_LAUNCHES)
     paths = [
         drive_path(tag, "K=7", CODE, soft8_spec(2), FRAME_BYTES, [(B_INPLACE, None), (B_TB, None)],
                    rng, ("acs_update_tb", "chainback_tb", "acs_update_inplace",
@@ -1959,6 +2090,9 @@ def phase_decode(tag, rng, errs):
     paths.append(drive_awgn(tag, rng, errs))
     paths.append(drive_parallel(tag, rng))
     launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
+    forms = {k: v - forms0.get(k, 0) for k, v in _build.FORM_LAUNCHES.items() if v > forms0.get(k, 0)}
+    print(f"[{tag}] the tracebacks' launches by output form over the nine paths (timing inside "
+          f"paths 7 and 9 included): {json.dumps(forms)}")
     # Every kernel of the kernels line; the walk's step kernel runs only where
     # a state line spans processes, which no path of one card does.
     zero = [name for name, n in launches.items() if n == 0 and name in REPLACES]
@@ -2069,15 +2203,19 @@ def phase_timing(tag, rng):
         print(f"[{tag}] acs_update_tb {label}: kernel {ms:.4f} ms = {1e6 * ms / t:.1f} ns a step, "
               f"bound {bnd[0]:.6f} ms ({bnd[1]}), {100 * bnd[0] / ms:.2f}% of bound (frames "
               f"identical to the compared call's)")
+    walk_args = {"chainback_tb": compared_args("chainback_tb")}
     kernel_row(tag, rows, "chainback_tb", kernels.chainback_tb, kernels.chainback_tb_ref,
-               compared_args("chainback_tb"), shape, chainback_bound_ms(B_TB, T, False), 20, steps=T)
+               walk_args["chainback_tb"], shape, chainback_bound_ms(B_TB, T, False), 20, steps=T)
+    form_rows(tag, rows, "chainback_tb", walk_args["chainback_tb"], shape)
     shape = f"K=7 B={B_INPLACE} T={T}"
     kernel_row(tag, rows, "acs_update_inplace", inplace.acs_update_inplace,
                inplace.acs_update_inplace_ref, compared_args("acs_update_inplace"), shape,
                acs_bound_ms(B_INPLACE, T), 20, steps=T)
+    walk_args["chainback_inplace"] = compared_args("chainback_inplace")
     kernel_row(tag, rows, "chainback_inplace", inplace.chainback_inplace,
-               inplace.chainback_inplace_ref, compared_args("chainback_inplace"), shape,
+               inplace.chainback_inplace_ref, walk_args["chainback_inplace"], shape,
                chainback_bound_ms(B_INPLACE, T, True), 20, steps=T)
+    form_rows(tag, rows, "chainback_inplace", walk_args["chainback_inplace"], shape)
     # The in-place pair at K=9 (VITERBI29 soft16, 512-byte frames), B=512.
     k9, s16, B = VITERBI29, soft16_spec(2), B_INPLACE
     _, sym = noisy_symbols(s16, B, rng, 160, k9, 512)
@@ -2090,6 +2228,7 @@ def phase_timing(tag, rng):
                                ("acs_update_inplace", "k9"))
     compare_walk(f"chainback_inplace {shape}", inplace.chainback_inplace,
                  inplace.chainback_inplace_ref, (k9, d, end, T9, 0), T9, ("chainback_inplace", "k9"))
+    hold_forms(shape, "chainback_inplace", k9, d, end, T9, FORM_ERRS, 0)
     del d
     kernel_row(tag, rows, "acs_update_inplace", inplace.acs_update_inplace,
                inplace.acs_update_inplace_ref, compared_args("acs_update_inplace", "k9"), shape,
@@ -2566,8 +2705,25 @@ def phase_launch_trace(tag, rng, quads):
         print(f"[{tag}] stream {code.name} B={B} {n}-step pushes: " + (
             "device operations not measured (the profiler recorded none)" if n_ops < 0 else
             f"{n_ops} device operations a push ({attempt}), of them the port's kernels "
-            f"{json.dumps(port)}"))
+            f"{json.dumps(port)}") + (f"; at most 5 expected at K=7: "
+                                      f"{'met' if 0 <= n_ops <= 5 else 'missed'}"
+                                      if code.K == 7 else ""))
         del dec, noisy
+    # Path 9's time-block shard body: device operations a call.
+    B, OL = B_TB, 56
+    _, noisy = noisy_symbols(soft8_spec(2), B, rng, 3, CODE, FRAME_BYTES)
+    noisy = torch.nn.functional.pad(noisy, (0, 0, 0, (-noisy.shape[1]) % 8))
+    for axes in ({"frame": 2, "time": 4}, {"time": 8}):
+        mesh = parallel.Mesh(axes, "cuda")
+        blk = mesh.shard(noisy, ("frame" if "frame" in axes else None, "time"))
+        n_ops, port, attempt = trace_push(
+            lambda: timeblock._time_block_shards(CODE, soft8_spec(2), mesh, blk, OL, "time"))
+        print(f"[{tag}] parallel time blocks K=7 B={B} on {axes}, overlap {OL}: the shard body " + (
+            "device operations not measured (the profiler recorded none)" if n_ops < 0 else
+            f"{n_ops} device operations a call ({attempt}), of them the port's kernels "
+            f"{json.dumps(port)}"))
+        del blk, mesh
+    del noisy
     pass_ms = metric_pass_ms(B_ICE, ice)
     for name, (args, body, extra, nq, quads_ms, ms) in quads.items():
         fn = getattr(large_k4, name)
@@ -2708,6 +2864,8 @@ def main() -> int:
     done("launches a call (device trace)")
     print(f"[{tag}] chip_smoke: {time.perf_counter() - t0:.1f} s in all")
 
+    for name, e in FORM_ERRS.items():
+        errs[name] = max(errs[name], e)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name], **rows[name],

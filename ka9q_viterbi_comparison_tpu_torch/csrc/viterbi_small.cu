@@ -18,8 +18,8 @@
 //   symbols  [Tp, R, B] int32           (Tp >= t_real; steps >= t_real unread)
 //   words    [Tp, W, B] int32 (uint32 bits), W = max(1, S/32); the tracebacks read any strides
 //   etab     [S/2] int32, bit 8*x + r = transition_tables(code)[x, r, s2]
-//   endstate [B] int32
-//   bits     [NW, B] int32, bit t%32 of word t/32 = walk output at step t
+//   traceback output: words [NW, B] int32, bit t%32 of word t/32 = walk output
+//            at step t; or a step a byte, or data bytes MSB-first (CbArgs)
 //
 // What bounds them on the card.  The ACS sweep is a serial recurrence over T
 // steps per frame; its bytes (symbols in, words out) are small, and at the
@@ -349,6 +349,13 @@ __global__ void acs_tb2_block_kernel(const int* __restrict__ metrics_in, const i
 
 __device__ __forceinline__ void cp_async4(void* dst_shared, const void* src_global) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst_shared)), "l"(src_global) : "memory");
+}
+// The same copy, or 4 zero bytes where `zero` (the source is not read).
+__device__ __forceinline__ void cp_async4_or_zero(void* dst_shared, const void* src_global,
+                                                  bool zero) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst_shared)),
+               "l"(src_global), "r"(zero ? 0 : 4) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -910,6 +917,13 @@ acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restri
 //    decision 0 or 1, and one multiply-add that puts it at its place in the
 //    next position: no memory access is left in the chain, and the only
 //    bookkeeping a step is the mask of the bit to replace.
+//    Lane 0 stores each chunk's 32 outputs as one word in every form (in
+//    either form of the walk): the bits and bytes forms keep them in a
+//    scratch array, and the warp writes them out after the walk, so neither
+//    the step loop nor the chunk's path changes with the form.  (Handing each chunk to the
+//    other lanes as it was walked, by a shuffle or through shared memory,
+//    was built and measured on an H100: it put their stores into the warp's
+//    one instruction stream between chunks, 8-14 % slower at K=7.)
 //    (Resolving five steps a round from the staged words, as below, was
 //    built and measured on an H100: 0.52 ms against 0.39 ms at K=7, B=512,
 //    T=8198 -- a
@@ -969,37 +983,167 @@ __device__ __forceinline__ unsigned pick_word(const unsigned* wv, int idx) {
   }
 }
 
+// What a traceback writes and where its end state comes from (the forms of
+// ops/cuda/kernels.py chainback_tb and ops/cuda/inplace.py chainback_inplace).
+//   out_kind words: int32 [nw, B], bit t%32 of word t/32 = walk output at step t;
+//            bits:  uint8, out[b * ostride + t - lo] = walk output at step t, t in [lo, hi);
+//            bytes: uint8, out[b * ostride + j] = steps lo + 8j .. lo + 8j + 7, MSB first.
+//   end_kind scalar: end_value; int32 / uint8: end_ptr[b * end_stride];
+//            argmin: the first state of least metric, metric (p, b) at
+//            metrics[p * ms + b * mb], p a position of rotation phase mphase
+//            (state rotl(p, mphase); 0: state order), ties to the lowest state.
+//   start    null, or a step a frame: where start[b] < t_real the frame's walk
+//            starts from state 0 at step start[b] and its outputs above are 0.
+enum CbOut { kOutWords = 0, kOutBits = 1, kOutBytes = 2 };
+enum CbEnd { kEndScalar = 0, kEndInt32 = 1, kEndUint8 = 2, kEndArgmin = 3 };
+
+struct CbArgs {
+  const int* dec;
+  long long st, sw, sb;
+  int end_kind, end_value;
+  const void* end_ptr;
+  long long end_stride;
+  const int* metrics;
+  long long ms, mb;
+  int mphase;
+  const int* start;
+  int out_kind;
+  void* out;
+  long long ostride;
+  int* scratch;  // bits and bytes forms: [ceil(t_real / 32), B] int32 for the walk's words
+  int lo, hi, K, B, t_real, nw, p0;
+};
+
+// The end state of frame b; the whole warp calls it (the argmin is a warp
+// reduction: lane L reads positions L, L + 32, ..).
+__device__ __forceinline__ int cb_end_state(const CbArgs& a, int b, int lane) {
+  if (a.end_kind == kEndInt32) return reinterpret_cast<const int*>(a.end_ptr)[b * a.end_stride];
+  if (a.end_kind == kEndUint8)
+    return reinterpret_cast<const unsigned char*>(a.end_ptr)[b * a.end_stride];
+  if (a.end_kind != kEndArgmin) return a.end_value;
+  const int nrot = a.K - 1, S = 1 << nrot, mask = S - 1, c = a.mphase;
+  int best = 0x7fffffff, bs = 0x7fffffff;
+  const int* m = a.metrics + b * a.mb;
+#pragma unroll 4
+  for (int p = lane; p < S; p += 32) {
+    const int v = m[p * a.ms];
+    const int s = c ? ((p << c) | (p >> (nrot - c))) & mask : p;
+    if (v < best || (v == best && s < bs)) best = v, bs = s;
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, best, o), os = __shfl_xor_sync(kFull, bs, o);
+    if (ov < best || (ov == best && os < bs)) best = ov, bs = os;
+  }
+  return bs;
+}
+
+__device__ __noinline__ int cb_end_state_call(const CbArgs& a, int b, int lane) {
+  return cb_end_state(a, b, lane);
+}
+
+// The bits and bytes forms' writer: the 32 walk outputs of chunk c (steps
+// 32c .. 32c + 31, bit u = step 32c + u) and those of the chunk above, from
+// `slot` of `nslots` writers.  Bits: a byte a step.  Bytes: the bytes whose
+// first step lies in the chunk, at most four (their last steps may lie in
+// the chunk above).
+struct CbWriter {
+  unsigned char* row;  // the frame's output row
+  int kind, lo, hi;
+  __device__ __forceinline__ void emit(int chunk, unsigned acc, unsigned above, int slot,
+                                       int nslots) const {
+    const int t_lo = chunk * kCbChunk;
+    if (kind == kOutBits) {
+      for (int u = slot; u < kCbChunk; u += nslots) {
+        const int t = t_lo + u;
+        if (t >= lo && t < hi) row[t - lo] = (unsigned char)((acc >> u) & 1u);
+      }
+    } else {
+      const int j0 = t_lo > lo ? (t_lo - lo + 7) >> 3 : 0;
+      const unsigned long long v = acc | ((unsigned long long)above << 32);
+      for (int i = slot; i < kCbChunk / 8; i += nslots) {
+        const int j = j0 + i, first = lo + 8 * j;
+        if (first < t_lo + kCbChunk && first + 8 <= hi)
+          row[j] = (unsigned char)(__brev((unsigned)(v >> (first - t_lo)) & 0xFFu) >> 24);
+      }
+    }
+  }
+};
+
+// The bits and bytes forms after the walk: the warp writes out its frame's
+// outputs from the chunk words the walk left (chunk c's at words[c * B]).
+__device__ __forceinline__ void cb_write_out(const CbWriter& wr, const int* words, int nchunks,
+                                             int B, int lane) {
+  __syncwarp();
+  if (wr.kind == kOutBits) {  // a chunk at a time, a step a lane: 32-byte stores
+    for (int c0 = 0; c0 < nchunks; c0 += 32) {  // 32 chunks a load, handed round by shuffles
+      const unsigned mine = c0 + lane < nchunks ? (unsigned)words[(size_t)(c0 + lane) * B] : 0u;
+      const int n = min(32, nchunks - c0);
+      for (int j = 0; j < n; ++j) wr.emit(c0 + j, __shfl_sync(kFull, mine, j), 0u, lane, 32);
+    }
+  } else {  // a chunk a lane, its bytes from it and the chunk above
+    for (int ch = lane; ch < nchunks; ch += 32)
+      wr.emit(ch, (unsigned)words[(size_t)ch * B],
+              ch + 1 < nchunks ? (unsigned)words[(size_t)(ch + 1) * B] : 0u, 0, 1);
+  }
+}
+
 // WT: the words a step (1, 2, 4, 8) of the staged form; 0: not staged.
 template <bool ROT, int WT>
 __global__ void __launch_bounds__(kCbFrames * 32)
-chainback_kernel(const int* __restrict__ dec, long long st, long long sw, long long sb,
-                 const int* __restrict__ endstate, int* __restrict__ bits, int K, int B,
-                 int t_real, int nw, int p0) {
+chainback_kernel(const CbArgs a) {
   extern __shared__ unsigned stage_cb[];
   constexpr bool STAGED = WT > 0;
+  const int* __restrict__ dec = a.dec;
+  const long long st = a.st, sw = a.sw, sb = a.sb;
+  const int K = a.K, B = a.B, t_real = a.t_real, p0 = a.p0;
+  int* const bits = reinterpret_cast<int*>(a.out);  // the words form's output
+  const bool words_out = a.out_kind == kOutWords;
   const int nrot = K - 1, S = 1 << nrot, mask = S - 1, W = STAGED ? WT : S >> 5;
   const int lane = threadIdx.x & 31, f = threadIdx.x >> 5;
   const int b0 = blockIdx.x * kCbFrames, b = b0 + f;
   const bool valid = b < B;  // whole warps
   const int bl = min(b, B - 1);
-  const int c = ROT ? (t_real + p0) % nrot : 0;  // rotation of the last step's decisions
-  const int state = endstate[bl] & mask;
-  int pos = c ? rotr_bits(state, c, nrot, mask) : state;
-  int jj = c ? nrot - c : 0;  // ROT: the position bit that the next decision replaces
-  if (valid && lane == 0)
-    for (int w = (t_real + 31) >> 5; w < nw; ++w) bits[(size_t)w * B + b] = 0;
+  // The frame's start step: where it lies below t_real, the walk of its words
+  // zeroed from there on, from state 0 at t_real (the zero words keep it at
+  // state 0 down to the start step).
+  const bool zeroed = a.start != nullptr && a.start[bl] < t_real;
+  // The staged walk takes the end state through a call: the argmin's code
+  // inline in it cost the step loop some 5 % at K=7 on an H100.
+  const int state =
+      (zeroed ? 0 : STAGED ? cb_end_state_call(a, bl, lane) : cb_end_state(a, bl, lane)) & mask;
+  const CbWriter wr{static_cast<unsigned char*>(a.out) + (size_t)bl * a.ostride, a.out_kind, a.lo,
+                    a.hi};
 
-  if (STAGED) {
+  if constexpr (STAGED) {
+    const int c = ROT ? (t_real + p0) % nrot : 0;  // rotation of the last step's decisions
+    int pos = c ? rotr_bits(state, c, nrot, mask) : state;
+    const int jj = c ? nrot - c : 0;  // ROT: the position bit that the next decision replaces
+    // Lane 0 stores a chunk's 32 outputs as one word: into the words form's
+    // output, or for the bits and bytes forms into a scratch [nchunks, B]
+    // that the warp writes out after the walk.
+    int* __restrict__ chunk_words = words_out ? bits : a.scratch;
+    if (valid && lane == 0 && words_out)
+      for (int w = (t_real + 31) >> 5; w < a.nw; ++w) chunk_words[(size_t)w * B + b] = 0;
     const int FS = kCbChunk * W + 4;  // a frame's stride: the copies' stores spread over banks
     const int nchunks = (t_real + kCbChunk - 1) / kCbChunk;
+    // This thread's part of each chunk's copy, the same in every chunk: word
+    // w of frame ff at steps u0, u0 + 32/W, .. (W copies; blockDim.x is
+    // kCbFrames * 32), read as zeros from the frame's start step on.  The
+    // walking lane copies too, so the fewer instructions a copy, the shorter
+    // its path to the walk.
+    const int ff = threadIdx.x & (kCbFrames - 1), rw0 = threadIdx.x >> 3;
+    const int u0 = rw0 / W, fb = min(b0 + ff, B - 1);
+    const int* src = dec + (rw0 % W) * sw + fb * sb;
+    const int zero_from = a.start != nullptr ? a.start[fb] : t_real;
     auto copy = [&](int seq) {  // chunk nchunks-1-seq into buffer seq % kCbBufs
       if (seq < nchunks) {
-        const int t_lo = (nchunks - 1 - seq) * kCbChunk;
-        unsigned* buf = stage_cb + (size_t)(seq % kCbBufs) * kCbFrames * FS;
-        for (int idx = threadIdx.x; idx < kCbChunk * W * kCbFrames; idx += blockDim.x) {
-          const int ff = idx & (kCbFrames - 1), rw = idx >> 3, u = rw / W, w = rw - u * W;
-          const int tt = min(t_lo + u, t_real - 1);
-          cp_async4(&buf[ff * FS + rw], &dec[tt * st + w * sw + min(b0 + ff, B - 1) * sb]);
+        const int t_lo = (nchunks - 1 - seq) * kCbChunk + u0;
+        unsigned* dst = stage_cb + (size_t)(seq % kCbBufs) * kCbFrames * FS + ff * FS + rw0;
+#pragma unroll
+        for (int k = 0; k < (STAGED ? WT : 1); ++k) {
+          const int tt = min(t_lo + k * (kCbChunk / W), t_real - 1);
+          cp_async4_or_zero(dst + kCbChunk * k, src + tt * st, tt >= zero_from);
         }
       }
       cp_async_commit();
@@ -1019,7 +1163,7 @@ chainback_kernel(const int* __restrict__ dec, long long st, long long sw, long l
         const unsigned* st =
             stage_cb + (size_t)(seq % kCbBufs) * kCbFrames * FS + f * FS + last * W;
         unsigned acc = 0, ubit = 1u << last;
-#pragma unroll 8
+#pragma unroll 16
         for (int u = last; u >= 0; --u, st -= W, ubit >>= 1) {
           // All W words of the step, whichever the walk will want: the loads
           // do not depend on the position, so they run ahead of the chain.
@@ -1048,51 +1192,68 @@ chainback_kernel(const int* __restrict__ dec, long long st, long long sw, long l
             pos = (pos >> 1) + k * bm;
           }
         }
-        bits[(size_t)chunk * B + b] = (int)acc;
+        chunk_words[(size_t)chunk * B + b] = (int)acc;
       }
     }
     cp_async_wait<0>();
+    if (!words_out && valid) cb_write_out(wr, chunk_words + b, nchunks, B, lane);
     return;
   }
 
+  // Not staged: the frame's walk starts at its start step, from state 0.
+  const int tr = zeroed ? max(a.start[bl], 0) : t_real;
+  const int c = ROT ? (tr + p0) % nrot : 0;  // rotation of the first walked step's decisions
+  int pos = c ? rotr_bits(state, c, nrot, mask) : state;
+  int jj = c ? nrot - c : 0;
+  // As in the staged form, the chunk words go to the words form's output or
+  // to the scratch of the bits and bytes forms; those above the start step
+  // are zero.
+  int* __restrict__ chunk_words = words_out ? bits : a.scratch;
+  const int nchunks = (t_real + kCbChunk - 1) / kCbChunk;
+  if (valid && lane == 0)
+    for (int w = (tr + 31) >> 5; w < (words_out ? a.nw : nchunks); ++w)
+      chunk_words[(size_t)w * B + b] = 0;
   if (!valid) return;
-  // This lane's candidate: d steps back on the decisions cb (lane 31: none).
-  const int d = 31 - __clz(lane + 1);
-  const int cb = d ? (int)(__brev((unsigned)(lane + 1) ^ (1u << d)) >> (32 - d)) : 0;
-  int t = t_real - 1, cw = t >> 5;
-  unsigned acc = 0;
-  while (t >= 0) {
-    const int n = min(kCbDepth, t + 1);
-    int kc = 0;
-    if (d < n) {
-      const int cand = walk_back<ROT>(pos, d, cb, jj, K);
-      const unsigned word = (unsigned)dec[(t - d) * st + (cand >> 5) * sw + b * sb];
-      kc = (word >> (cand & 31)) & 1;
-    }
-    const unsigned bal = __ballot_sync(kFull, kc);
-    unsigned node = 0;
+  if (tr > 0) {
+    // This lane's candidate: d steps back on the decisions cb (lane 31: none).
+    const int d = 31 - __clz(lane + 1);
+    const int cb = d ? (int)(__brev((unsigned)(lane + 1) ^ (1u << d)) >> (32 - d)) : 0;
+    int t = tr - 1, cw = t >> 5;
+    unsigned acc = 0;
+    while (t >= 0) {
+      const int n = min(kCbDepth, t + 1);
+      int kc = 0;
+      if (d < n) {
+        const int cand = walk_back<ROT>(pos, d, cb, jj, K);
+        const unsigned word = (unsigned)dec[(t - d) * st + (cand >> 5) * sw + b * sb];
+        kc = (word >> (cand & 31)) & 1;
+      }
+      const unsigned bal = __ballot_sync(kFull, kc);
+      unsigned node = 0;
 #pragma unroll
-    for (int e = 0; e < kCbDepth; ++e)
-      if (e < n) node = 2 * node + 1 + ((bal >> node) & 1);
-    // node + 1 = 1 k_0 .. k_{n-1}: k_e is the output of step t - e, so the
-    // field's bit 0 belongs to step t - n + 1.
-    const unsigned path = (node + 1) ^ (1u << n);
-    const int t0 = t - n + 1, sh = t0 & 31;
-    if ((t0 >> 5) != cw) {  // the round reaches into the word below
-      acc |= path >> (32 - sh);
-      if (lane == 0) bits[(size_t)cw * B + b] = (int)acc;
-      acc = 0;
-      cw = t0 >> 5;
+      for (int e = 0; e < kCbDepth; ++e)
+        if (e < n) node = 2 * node + 1 + ((bal >> node) & 1);
+      // node + 1 = 1 k_0 .. k_{n-1}: k_e is the output of step t - e, so the
+      // field's bit 0 belongs to step t - n + 1.
+      const unsigned path = (node + 1) ^ (1u << n);
+      const int t0 = t - n + 1, sh = t0 & 31;
+      if ((t0 >> 5) != cw) {  // the round reaches into the word below
+        acc |= path >> (32 - sh);
+        if (lane == 0) chunk_words[(size_t)cw * B + b] = (int)acc;
+        acc = 0;
+        cw = t0 >> 5;
+      }
+      acc |= path << sh;
+      pos = walk_back<ROT>(pos, n, (int)(__brev(path) >> (32 - n)), jj, K);
+      if (ROT) {
+        jj += n;
+        if (jj >= nrot) jj -= nrot;
+      }
+      t -= n;
     }
-    acc |= path << sh;
-    pos = walk_back<ROT>(pos, n, (int)(__brev(path) >> (32 - n)), jj, K);
-    if (ROT) {
-      jj += n;
-      if (jj >= nrot) jj -= nrot;
-    }
-    t -= n;
+    if (lane == 0) chunk_words[(size_t)cw * B + b] = (int)acc;
   }
-  if (lane == 0) bits[(size_t)cw * B + b] = (int)acc;
+  if (!words_out) cb_write_out(wr, chunk_words + b, nchunks, B, lane);
 }
 
 int acs_threads(int K) {
@@ -1268,24 +1429,32 @@ cudaError_t inplace_dispatch(const InplaceArgs& a) {
 }
 
 template <bool ROT>
-cudaError_t launch_chainback(const int* dec, long long st, long long sw, long long sb,
-                             const int* endstate, int* bits, int K, int B, int t_real, int nw,
-                             int p0, cudaStream_t stream) {
-  if (K < 2 || K > (ROT ? 15 : 24) || B < 1 || t_real < 1 || nw < (t_real + 31) / 32)
+cudaError_t launch_chainback(const CbArgs& a, cudaStream_t stream) {
+  const int K = a.K, B = a.B;
+  if (K < 2 || K > (ROT ? 15 : 24) || B < 1 || a.t_real < 1 || a.p0 < 0 || a.p0 >= K - 1 ||
+      a.end_kind < kEndScalar || a.end_kind > kEndArgmin ||
+      (a.end_kind != kEndScalar && a.end_kind != kEndArgmin && a.end_ptr == nullptr) ||
+      (a.end_kind == kEndArgmin && (a.metrics == nullptr || a.mphase < 0 || a.mphase >= K - 1)))
+    return cudaErrorInvalidValue;
+  if (a.out_kind == kOutWords ? a.nw < (a.t_real + 31) / 32
+                              : (a.out_kind != kOutBits && a.out_kind != kOutBytes) ||
+                                    a.scratch == nullptr ||
+                                    a.lo < 0 || a.lo > a.hi || a.hi > a.t_real ||
+                                    (a.out_kind == kOutBytes && (a.hi - a.lo) % 8))
     return cudaErrorInvalidValue;
   const int blocks = (B + kCbFrames - 1) / kCbFrames, threads = kCbFrames * 32;
   const int W = K >= 7 ? 1 << (K - 6) : 1;
   const int smem = 4 * kCbBufs * kCbFrames * (kCbChunk * W + 4);
   if (W == 1)
-    chainback_kernel<ROT, 1><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 1><<<blocks, threads, smem, stream>>>(a);
   else if (W == 2)
-    chainback_kernel<ROT, 2><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 2><<<blocks, threads, smem, stream>>>(a);
   else if (W == 4)
-    chainback_kernel<ROT, 4><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 4><<<blocks, threads, smem, stream>>>(a);
   else if (W == 8)
-    chainback_kernel<ROT, 8><<<blocks, threads, smem, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 8><<<blocks, threads, smem, stream>>>(a);
   else
-    chainback_kernel<ROT, 0><<<blocks, threads, 0, stream>>>(dec, st, sw, sb, endstate, bits, K, B, t_real, nw, p0);
+    chainback_kernel<ROT, 0><<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1337,19 +1506,19 @@ int viterbi_acs_inplace(const void* m_in, const void* sym, const void* postab,
 int viterbi_acs_inplace_smem(int K, int R, int comp) { return acs_inplace_smem(K, R, comp != 0); }
 
 // The tracebacks over dec, element (t, w, b) at t*st + w*sw + b*sb: state
-// order up to K=24, position order (ROT) up to K=15.
-int viterbi_chainback_tb(const void* dec, long long st, long long sw, long long sb,
-                         const void* endstate, void* bits, int K, int B, int t_real, int nw,
-                         void* stream) {
-  return (int)launch_chainback<false>((const int*)dec, st, sw, sb, (const int*)endstate,
-                                      (int*)bits, K, B, t_real, nw, 0, (cudaStream_t)stream);
-}
-
-int viterbi_chainback_inplace(const void* dec, long long st, long long sw, long long sb,
-                              const void* endstate, void* bits, int K, int B, int t_real, int nw,
-                              int p0, void* stream) {
-  return (int)launch_chainback<true>((const int*)dec, st, sw, sb, (const int*)endstate,
-                                     (int*)bits, K, B, t_real, nw, p0, (cudaStream_t)stream);
+// order up to K=24, position order (rot) up to K=15, in the output and end
+// state forms of CbArgs (p0 < K-1: the phase of dec's first step).
+int viterbi_chainback(int rot, const void* dec, long long st, long long sw, long long sb,
+                      int end_kind, int end_value, const void* end_ptr, long long end_stride,
+                      const void* metrics, long long ms, long long mb, int mphase,
+                      const void* start, int out_kind, void* out, long long ostride,
+                      void* scratch, int lo, int hi, int K, int B, int t_real, int nw, int p0,
+                      void* stream) {
+  const CbArgs a{(const int*)dec, st, sw, sb, end_kind, end_value, end_ptr, end_stride,
+                 (const int*)metrics, ms, mb, mphase, (const int*)start, out_kind, out,
+                 ostride, (int*)scratch, lo, hi, K, B, t_real, nw, p0};
+  return (int)(rot ? launch_chainback<true>(a, (cudaStream_t)stream)
+                   : launch_chainback<false>(a, (cudaStream_t)stream));
 }
 
 }  // extern "C"

@@ -150,10 +150,11 @@ A `gpu_torch` chain is issued from Python as the portable path runs, and
 lasts about {bench.HOST_CHAIN_NS / 1e9:g} s.  `cpu_native` phases are timed on
 the host's monotonic clock, one link a chain.  So a `gpu_cuda` cell is the
 time of a graph-replayed chain of `phase_fns` phases, not of a call through
-`ViterbiDecoder`: a decoder call adds the host's issue time and, in the
-traceback, the launches that unpack the walk's bit words and pack the bytes
-(`dispatch.walk_bytes`), and through the decoder the ICE traceback phase
-loses to its column (`PERF.md` §5).  Families:
+`ViterbiDecoder`: a decoder call adds the host's issue time.  Its traceback
+is one launch of the walk, which writes the bytes itself
+(`dispatch.walk_bytes`); through the decoder the ICE B=8 traceback phase
+took 0.0531-0.0750 ms = 6.8-9.6 Mbit/s on an NVIDIA H100 80GB HBM3 at 700 W,
+above its column (`harness/probe_glue.py`, `PERF.md` §5).  Families:
 
 * `gpu_cuda`   — the hand-written CUDA kernels for the H100 through
   `ops/cuda/dispatch.py` `phase_fns`, in the kernels' own layouts (K ≤ 9:

@@ -10,21 +10,35 @@ some 5-8 K steps).
 
 Backends, those of ``ViterbiDecoder``:
 
-* ``"cuda"``  -- the update through ``ops.cuda.dispatch.acs_update`` with
-  ``t0`` = the stream's absolute step, so the in-place kernel's rotation
-  phases stay consistent across pushes; the release walk through the
-  traceback kernels: ``chainback_inplace`` with the window's ``t0`` over
-  position-packed history, ``chainback_tb`` over state-order history
-  (any K up to 24).  On a CPU device the kernels' plain versions run.
+* ``"cuda"``  -- the update with ``t0`` = the stream's absolute step, so the
+  in-place kernel's rotation phases stay consistent across pushes; the
+  release walk through the traceback kernels: ``chainback_inplace`` with the
+  window's ``t0`` over position-packed history, ``chainback_tb`` over
+  state-order history (any K up to 24).  On a CPU device the kernels' plain
+  versions run.
 * ``"torch"`` -- the portable path (``ops.acs`` and ``ops.chainback``).
+
+The window.  The history lives in one buffer ``[Tcap, W, B]`` in the
+kernels' layout, allocated at the first push with room for the traceback
+depth and the push padded to whole traceback words, and grown only when a
+larger push comes.  On the routes of the whole-frame kernels (the in-place
+pair, and the state-order pair for K <= 9) a push is a handful of launches,
+the counterpart of the one program the JAX stream compiles for each shape:
+the symbols' layout copy; the update, whose decisions go straight into rows
+``[h, h + n)`` of the window (``out=``); the walk, which takes the end state
+as the argmin of the metrics itself and writes the released bits straight
+into the returned ``[B, m]`` tensor (its ``bits`` form); and one copy of the
+retained rows to the front of the window.  The metrics stay in the kernels'
+``[S, B]`` (position space of the stream head's phase on the in-place
+route); ``metrics`` and ``checkpoint`` give them batch-major in state order,
+``[B, S]``, as the JAX package does.  The large-K route updates through
+``dispatch.acs_update`` and copies its words into the window.
 
 Whether the history is position-packed is decided once, at construction, by
 the in-place route's predicate (``dispatch.use_inplace`` on the batch), and a
-stream walks by that decision whatever the environment says later.  The
-history lives in the kernels' ``[T, W, B]`` layout; ``checkpoint`` gives it
-batch-major, ``[B, h, W]``, as the JAX package's checkpoint does, and
-``restore`` takes it back.  A push runs eagerly: a handful of kernel
-launches and tensor operations, with no per-shape program to build.
+stream walks by that decision whatever the environment says later.
+``checkpoint`` gives the history batch-major, ``[B, h, W]``, as the JAX
+package's checkpoint does, and ``restore`` refills the window from it.
 """
 
 from __future__ import annotations
@@ -68,20 +82,48 @@ class StreamingDecoder:
         self.device = resolve_device(self.device)
         self._rotated = self.backend == "cuda" and dispatch.use_inplace(
             self.code, self.batch, self.device)
+        # The whole-frame kernels' routes keep the metrics [S, B]; the others [B, S].
+        self._native = self._rotated or (self.backend == "cuda" and dispatch.supports(self.code))
+        self._buf: torch.Tensor | None = None  # the window [Tcap, W, B]
         self.reset()
 
     def reset(self, starting_state: int = 0) -> None:
-        self.metrics = acs.init_metrics(self.code, self.numeric, self.batch, starting_state,
-                                        self.device)
-        self._hist = torch.zeros((0, self.code.decision_words, self.batch), dtype=torch.int32,
-                                 device=self.device)  # [h, W, B]
         self.steps_emitted = 0  # trellis steps already released as bits
         self.abs_step = 0       # stream head (total steps consumed)
+        self._len = 0           # steps in the window
+        self.metrics = acs.init_metrics(self.code, self.numeric, self.batch, starting_state,
+                                        self.device)
+
+    def _phase(self) -> int:
+        """The rotation phase of the metrics' position space (0: state order)."""
+        return self.abs_step % (self.code.K - 1) if self._rotated else 0
+
+    @property
+    def metrics(self) -> torch.Tensor:
+        """The path metrics ``[B, S]`` int32 in state order."""
+        if not self._native:
+            return self._m
+        m = self._m
+        if self._phase():
+            m = m[dispatch._rot_index(self.code, self._phase(), True, self.device)]
+        return m.T.contiguous()
+
+    @metrics.setter
+    def metrics(self, value: torch.Tensor) -> None:
+        m = value.to(device=self.device, dtype=torch.int32)
+        if self._native:
+            m = m.T
+            if self._phase():
+                m = m[dispatch._rot_index(self.code, self._phase(), False, self.device)]
+        self._m = m.contiguous()
 
     @property
     def history(self) -> torch.Tensor:
         """The retained decision words ``[B, h, W]`` int32 (a view)."""
-        return self._hist.permute(2, 0, 1)
+        if self._buf is None:
+            return torch.zeros((self.batch, 0, self.code.decision_words), dtype=torch.int32,
+                               device=self.device)
+        return self._buf[:self._len].permute(2, 0, 1)
 
     # -- state as plain tensors (checkpoint/resume) --
     def checkpoint(self) -> dict[str, Any]:
@@ -115,9 +157,12 @@ class StreamingDecoder:
             raise ValueError(f"checkpoint metrics {tuple(metrics.shape)} / history "
                              f"{tuple(history.shape)} do not fit batch {B}, {S} states, "
                              f"{abs_step - steps_emitted} retained steps")
-        self.metrics = metrics.clone()
-        self._hist = history.permute(1, 2, 0).contiguous()
         self.steps_emitted, self.abs_step = steps_emitted, abs_step
+        self.metrics = metrics  # after abs_step: the in-place route rotates them to its phase
+        h = history.shape[1]
+        self._len = 0
+        self._window(h)[:h].copy_(history.permute(1, 2, 0))
+        self._len = h
 
     def push(self, symbols) -> torch.Tensor:
         """Consume symbols, return newly released data bits ``[B, m]`` uint8."""
@@ -127,25 +172,29 @@ class StreamingDecoder:
             return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
         emit = max(0, (self.abs_step + n - self.traceback_depth) - self.steps_emitted)
         skip = min(emit, max(0, (self.code.K - 1) - self.steps_emitted)) if emit else 0
-        if self.backend == "cuda":
-            self.metrics, words, _ = dispatch.acs_update(
-                self.code, self.numeric, self.metrics, symbols, self.abs_step)
+        h, Tw = self._len, self._len + n
+        rows = self._window(Tw)[h:Tw]  # where this push's decisions go
+        if self._native:
+            sym = symbols.permute(1, 2, 0).contiguous()  # the kernels' [n, R, B]
+            if self._rotated:
+                self._m, _ = inplace.acs_update_inplace(self.code, self.numeric, self._m, sym, n,
+                                                        self.abs_step, out=rows)
+            else:
+                self._m, _ = dispatch._small_k_impl(self.batch)(self.code, self.numeric,
+                                                                self._m, sym, n, out=rows)
         else:
-            self.metrics, words, _ = acs.acs_update(
-                self.code, self.numeric, self.metrics, symbols, fused_penalties=True)
-        # The window, padded for the traceback kernels in the same copy.
-        h, Tw = self._hist.shape[0], self._hist.shape[0] + n
-        buf = self._window(Tw)
-        buf[:h] = self._hist
-        buf[h:Tw] = words.permute(1, 2, 0)  # the kernels' own [n, W, B]: no copy before this one
+            if self.backend == "cuda":
+                self._m, words, _ = dispatch.acs_update(self.code, self.numeric, self._m,
+                                                        symbols, self.abs_step)
+            else:
+                self._m, words, _ = acs.acs_update(self.code, self.numeric, self._m, symbols,
+                                                   fused_penalties=True)
+            rows.copy_(words.permute(1, 2, 0))
         self.abs_step += n
+        self._len = Tw
         if emit <= 0:
-            self._hist = buf[:Tw]
             return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
-        raw = self._walk(buf, Tw, self.metrics.argmin(dim=-1).to(torch.int32))
-        self._hist = buf[emit:Tw]
-        self.steps_emitted += emit
-        return raw[:, skip:emit]
+        return self._release_steps(emit, skip, None)
 
     def flush(self, endstate: int | None = 0) -> torch.Tensor:
         """Release every remaining step (stream over; default: trellis was
@@ -153,53 +202,57 @@ class StreamingDecoder:
         return self._release(self.abs_step - self.steps_emitted, endstate)
 
     def _release(self, n_steps: int, endstate) -> torch.Tensor:
-        B = self.batch
         if n_steps <= 0:
-            return torch.zeros((B, 0), dtype=torch.uint8, device=self.device)
-        # Traceback over the whole retained history from the best (or given)
-        # end state; only the oldest n_steps outputs are final.
-        if endstate is None:
-            end = self.metrics.argmin(dim=-1).to(torch.int32)
-        else:
-            end = torch.full((B,), endstate & (self.code.num_states - 1), dtype=torch.int32,
-                             device=self.device)
-        Tw = self._hist.shape[0]
-        buf = self._window(Tw)
-        buf[:Tw] = self._hist
-        out = self._walk(buf, Tw, end)[:, :n_steps]
-        self._hist = self._hist[n_steps:]
-        self.steps_emitted += n_steps
-        # Walk output at absolute step t is data bit t - (K-1): the first
-        # K-1 outputs of the stream are the encoder's warm-up, dropped here.
-        skip = max(0, (self.code.K - 1) - (self.steps_emitted - n_steps))
-        return out[:, skip:]
+            return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
+        # Walk output at absolute step t is data bit t - (K-1): the first K-1
+        # outputs of the stream are the encoder's warm-up, dropped here.
+        skip = min(n_steps, max(0, (self.code.K - 1) - self.steps_emitted))
+        return self._release_steps(n_steps, skip, endstate)
+
+    def _release_steps(self, emit: int, skip: int, endstate) -> torch.Tensor:
+        """Walk the window from the best (``endstate`` None) or the given end
+        state, release the outputs of its steps ``[skip, emit)`` -- only the
+        oldest ``emit`` are final -- and drop its first ``emit`` steps."""
+        Tw, B = self._len, self.batch
+        out = torch.empty((B, emit - skip), dtype=torch.uint8, device=self.device)
+        if emit > skip:
+            self._walk(Tw, endstate, skip, emit, out)
+        keep = Tw - emit
+        if keep:
+            src = self._buf[emit:Tw]
+            # Source and destination overlap when the window keeps more than it drops.
+            self._buf[:keep].copy_(src if emit >= keep else src.clone())
+        self._len = keep
+        self.steps_emitted += emit
+        return out
 
     def _window(self, Tw: int) -> torch.Tensor:
-        """An ``[Tp, W, B]`` buffer for a window of ``Tw`` steps, its time
-        padded to whole traceback words and the padding zeroed."""
-        Tp = inplace.pad_time_inplace(self.code, Tw)
-        buf = torch.empty((Tp, self.code.decision_words, self.batch), dtype=torch.int32,
-                          device=self.device)
-        buf[Tw:] = 0
-        return buf
+        """The window buffer, with room for ``Tw`` steps: grown (its ``_len``
+        retained steps copied over) only when it has less."""
+        if self._buf is None or self._buf.shape[0] < Tw:
+            cap = inplace.pad_time_inplace(self.code, max(Tw, self.traceback_depth + Tw - self._len))
+            buf = torch.empty((cap, self.code.decision_words, self.batch), dtype=torch.int32,
+                              device=self.device)
+            if self._len:
+                buf[:self._len] = self._buf[:self._len]
+            self._buf = buf
+        return self._buf
 
-    def _walk(self, buf: torch.Tensor, Tw: int, end: torch.Tensor) -> torch.Tensor:
-        """Walk outputs ``[B, Tw]`` uint8 of the window ``buf[:Tw]``, whose
-        first step is the absolute step ``steps_emitted``."""
+    def _walk(self, Tw: int, endstate, lo: int, hi: int, out: torch.Tensor) -> None:
+        """Walk outputs of steps ``[lo, hi)`` of the window's ``Tw`` steps,
+        whose first is the absolute step ``steps_emitted``, into ``out``: from
+        ``endstate``, or (None) from each frame's first state of least
+        metric."""
+        code, buf = self.code, self._buf
         if self.backend == "cuda":
+            # [S, B] views of the metrics: the walk takes their argmin itself.
+            m = None if endstate is not None else (self._m if self._native else self._m.T)
             if self._rotated:
-                return dispatch.walk_bits(self.code, inplace.chainback_inplace, buf, Tw, end,
-                                          self.steps_emitted)
-            return dispatch.walk_bits(self.code, kernels.chainback_tb, buf, Tw, end)
-        return _raw_walk(self.code, buf[:Tw].permute(2, 0, 1), end, self._rotated,
-                         self.steps_emitted)
-
-
-def _raw_walk(code: CodeSpec, words: torch.Tensor, end: torch.Tensor, rotated: bool = False,
-              t_offset: int = 0) -> torch.Tensor:
-    """Plain reverse decision walk over ``[B, n, W]`` from ``end``: the full
-    output sequence ``[B, n]`` uint8.  ``rotated``: position-packed words
-    (``ops.chainback.walk``); ``t_offset``: the absolute step of
-    ``words[:, 0]``."""
-    ks, _ = cb.walk(code, words, end, rotated, t_offset)
-    return ks.to(torch.uint8)
+                inplace.chainback_inplace(code, buf, endstate, Tw, self.steps_emitted, "bits",
+                                          lo, hi, out=out, metrics=m, metrics_phase=self._phase())
+            else:
+                kernels.chainback_tb(code, buf, endstate, Tw, "bits", lo, hi, out=out, metrics=m)
+            return
+        end = self._m.argmin(dim=-1).to(torch.int32) if endstate is None else endstate
+        ks, _ = cb.walk(code, buf[:Tw].permute(2, 0, 1), end)  # the portable walk
+        out.copy_(ks[:, lo:hi])

@@ -25,7 +25,7 @@ import time
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
+__all__ = ["LAUNCHES", "FORM_LAUNCHES", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
            "Bound", "check_cuda_int32"]
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
@@ -58,6 +58,10 @@ LAUNCHES: dict[str, int] = {
     "sharded_traceback_step": 0,
 }
 
+# The tracebacks' launches by output form ("chainback_tb:bytes", ...): a
+# tally beside the counters, which reset_launch_counts leaves alone.
+FORM_LAUNCHES: dict[str, int] = {}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -69,8 +73,8 @@ _SIGNATURES = {
     "viterbi_acs_tb_smem": (_I, _I, _I),
     "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace_smem": (_I, _I, _I),
-    "viterbi_chainback_tb": (_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _P),
-    "viterbi_chainback_inplace": (_P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P),
+    "viterbi_chainback": (_I, _P, _L, _L, _L, _I, _I, _P, _L, _P, _L, _L, _I, _P, _I, _P, _L,
+                          _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large2_chip": (_P, _P, _PI, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -42,7 +42,9 @@ retires 8 or 4 steps a fetch (``walk.chainback_planes``, the kernel of
 The batch is not padded: each CUDA block owns whole frames, so there is no
 lane width to fill (the JAX package pads to 128 lanes only on a TPU).  Time
 is padded to whole traceback words (32 steps) before the traceback, which is
-the shape the Pallas traceback kernels take too.
+the shape the Pallas traceback kernels take too.  A traceback to bytes or
+bits (``chainback``, ``walk_bytes``) is one launch of the kernel's
+``bytes`` or ``bits`` form: the kernel writes them itself.
 """
 
 from __future__ import annotations
@@ -53,13 +55,12 @@ import torch
 import torch.nn.functional as F
 
 from ...configs import CodeSpec, NumericSpec
-from ...utils.bits import bits_to_bytes, unpack_words_to_bits
+from ...utils.bits import unpack_words_to_bits
 from .. import acs, radix_planes as rp
 from . import flags, inplace, kernels, kernels2, large_k2, large_k4, walk
 
 __all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace", "supports",
-           "supports_chainback", "shared_cap", "fits_shared", "unpack_bit_words", "walk_bits",
-           "walk_bytes"]
+           "supports_chainback", "shared_cap", "fits_shared", "unpack_bit_words", "walk_bytes"]
 
 
 def shared_cap(device: torch.device) -> int | None:
@@ -160,15 +161,7 @@ def _small_k_impl(batch: int):
     return kernels.acs_update_tb
 
 
-def _end_states(code: CodeSpec, endstate, batch: int, device: torch.device) -> torch.Tensor:
-    """``endstate`` (an int, or a 0-d, ``[B]`` or ``[1, B]`` tensor) as the
-    ``[1, B]`` int32 tensor the traceback kernels read.  A tensor stays on
-    its device: nothing here waits for the stream."""
-    mask = code.num_states - 1
-    if isinstance(endstate, torch.Tensor):
-        end = endstate.to(device=device, dtype=torch.int32) & mask
-        return end.reshape(1, -1).expand(1, batch).contiguous()
-    return torch.full((1, batch), int(endstate) & mask, dtype=torch.int32, device=device)
+_end_states = kernels._end_states  # the plain walks' end state, [1, B] int32
 
 
 def acs_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
@@ -201,31 +194,27 @@ def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,
     position order and walk through ``chainback_inplace``, the others through
     ``chainback_tb`` (any K up to 24, where the JAX package walks above K=15
     in jnp).  The kernels walk the batch-major words where they lie (at ICE a
-    frame holds 2^18 words a step)."""
+    frame holds 2^18 words a step) and write the bytes themselves: one
+    launch."""
     if num_data_bits % 8 != 0:
         raise ValueError("num_data_bits must be a multiple of 8")
     B, T, _ = words.shape
     inplace_route = use_inplace(code, B, words.device)
     walk_fn = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
     return walk_bytes(code, walk_fn, words.to(torch.int32).permute(1, 2, 0), T, num_data_bits,
-                      endstate)
-
-
-def walk_bits(code: CodeSpec, walk, dec: torch.Tensor, T: int, endstate, *extra) -> torch.Tensor:
-    """Walk outputs ``[B, T]`` uint8 of the traceback kernel ``walk``
-    (``kernels.chainback_tb`` or ``inplace.chainback_inplace``, whose
-    ``extra`` is the window's ``t0``) over ``dec [Tp, W, B]`` (any strides)
-    from ``endstate`` (an int or a device tensor)."""
-    end = _end_states(code, endstate, dec.shape[2], dec.device)
-    return unpack_bit_words(walk(code, dec, end, T, *extra), T)
+                      endstate, *((0,) if inplace_route else ()))
 
 
 def walk_bytes(code: CodeSpec, walk, dec: torch.Tensor, T: int, num_data_bits: int,
-               endstate) -> torch.Tensor:
-    """Decoded bytes ``[B, num_data_bits // 8]`` of a whole frame's walk: the
-    first K-1 outputs (the initial state's bits) dropped."""
-    bits = walk_bits(code, walk, dec, T, endstate)
-    return bits_to_bytes(bits[:, code.K - 1 : code.K - 1 + num_data_bits])
+               endstate, *extra) -> torch.Tensor:
+    """Decoded bytes ``[B, num_data_bits // 8]`` of a whole frame's walk (the
+    first K-1 outputs, the initial state's bits, dropped): one launch of the
+    bytes form of the traceback kernel ``walk`` (``kernels.chainback_tb``, or
+    ``inplace.chainback_inplace`` with its ``t0`` in ``extra``) over ``dec
+    [Tp, W, B]`` (any strides) from ``endstate`` (an int or a device
+    tensor)."""
+    lo = code.K - 1
+    return walk(code, dec, endstate, T, *extra, "bytes", lo, lo + num_data_bits)
 
 
 def make_chains(update_fn, chainback_impl):
@@ -266,6 +255,7 @@ def _native_phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
     from ...models.decoder import as_symbols
 
     walk_fn = inplace.chainback_inplace if inplace_route else kernels.chainback_tb
+    walk_extra = (0,) if inplace_route else ()  # the in-place walk's t0
 
     def init_fn(batch):
         return acs.init_metrics(code, numeric, batch, device=device).T.contiguous()  # [S, B]
@@ -287,7 +277,7 @@ def _native_phase_fns(code: CodeSpec, numeric: NumericSpec, num_data_bits: int,
 
     def _cb_impl(words_native, endstate):
         dec, T, _ = words_native
-        return walk_bytes(code, walk_fn, dec, T, num_data_bits, endstate)
+        return walk_bytes(code, walk_fn, dec, T, num_data_bits, endstate, *walk_extra)
 
     def chainback_fn(words_native):
         return _cb_impl(words_native, 0)

@@ -30,8 +30,8 @@ from ...utils.bits import unpack_words_to_bits
 from ..acs import _pack_decisions
 from ..branch import packed_transition_table
 from . import _build
-from .kernels import (_check_t_real, _state_order_words, complement_form, launch_chainback,
-                      walk_ref)
+from .kernels import (_check_t_real, _into, _state_order_words, complement_form,
+                      launch_chainback, walk_ref, words_out)
 
 __all__ = [
     "acs_update_inplace",
@@ -178,7 +178,8 @@ def pad_time_inplace(code: CodeSpec, T: int) -> int:
 
 
 def acs_update_inplace_ref(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: torch.Tensor,
-                           symbols_trb: torch.Tensor, t_real: int, t0: int = 0):
+                           symbols_trb: torch.Tensor, t_real: int, t0: int = 0,
+                           out: torch.Tensor | None = None):
     """Plain version of ``acs_update_inplace``: un-rotate, run the
     state-order ACS, then rotate the final metrics and permute each step's
     decisions into position order (words past ``t_real`` are zero)."""
@@ -201,11 +202,12 @@ def acs_update_inplace_ref(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb:
         perms = idx(np.stack([rot_perm(code, t0 + t + 1) for t in range(lo, hi)]))  # [c, S]
         bits_pos = bits.gather(2, perms[None].expand(B, -1, -1))
         dec[lo:hi] = _pack_decisions(bits_pos).permute(1, 2, 0)
-    return m_pos.contiguous(), dec
+    return m_pos.contiguous(), _into(out, dec)
 
 
 def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: torch.Tensor,
-                       symbols_trb: torch.Tensor, t_real: int, t0: int = 0):
+                       symbols_trb: torch.Tensor, t_real: int, t0: int = 0,
+                       out: torch.Tensor | None = None):
     """Whole-frame in-place ACS.
 
     Args:
@@ -215,12 +217,14 @@ def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: tor
       symbols_trb: ``[Tp, R, B]`` int32, ``Tp >= t_real``.
       t_real: true number of trellis steps in this call.
       t0: trellis steps consumed before this call.
+      out: where the words go (a contiguous ``[Tp, W, B]`` int32 view: rows
+        of a stream's window), or None for a new tensor.
 
     Returns ``(metrics [S, B] in position space of (t0 + t_real) mod (K-1),
     dec_words [Tp, W, B] int32 packed in position order)``.
     """
     if not metrics_pos_sb.is_cuda:
-        return acs_update_inplace_ref(code, numeric, metrics_pos_sb, symbols_trb, t_real, t0)
+        return acs_update_inplace_ref(code, numeric, metrics_pos_sb, symbols_trb, t_real, t0, out)
     S, B = metrics_pos_sb.shape
     Tp = symbols_trb.shape[0]
     t_real = _check_t_real(t_real, Tp)
@@ -234,7 +238,7 @@ def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: tor
     dev = metrics_pos_sb.device
     postab, pair32, pair8 = _device_tables(code, dev)
     m_out = torch.empty_like(metrics_pos_sb)
-    dec = torch.empty((Tp, code.decision_words, B), dtype=torch.int32, device=dev)
+    dec = words_out(out, code, Tp, B, dev)
     _build.launch(
         "acs_update_inplace", "viterbi_acs_inplace", dev,
         metrics_pos_sb.data_ptr(), symbols_trb.data_ptr(), postab.data_ptr(), pair32.data_ptr(),
@@ -244,20 +248,31 @@ def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: tor
     return m_out, dec
 
 
-def chainback_inplace_ref(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor,
-                          t_real: int, t0: int = 0) -> torch.Tensor:
+def chainback_inplace_ref(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
+                          t0: int = 0, form: str = "words", lo: int = 0, hi: int | None = None,
+                          *, out: torch.Tensor | None = None, start: torch.Tensor | None = None,
+                          metrics: torch.Tensor | None = None,
+                          metrics_phase: int = 0) -> torch.Tensor:
     """Plain version of ``chainback_inplace``."""
-    return walk_ref(code, dec_words, endstate, t_real, rotated=True,
-                    p0=int(t0) % (code.K - 1))
+    return walk_ref(code, dec_words, endstate, t_real, True, int(t0) % (code.K - 1), form, lo,
+                    hi, out, start, metrics, metrics_phase)
 
 
-def chainback_inplace(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor,
-                      t_real: int, t0: int = 0) -> torch.Tensor:
+def chainback_inplace(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
+                      t0: int = 0, form: str = "words", lo: int = 0, hi: int | None = None, *,
+                      out: torch.Tensor | None = None, start: torch.Tensor | None = None,
+                      metrics: torch.Tensor | None = None, metrics_phase: int = 0) -> torch.Tensor:
     """Traceback over position-packed words from ``acs_update_inplace``.
 
-    Same contract as ``kernels.chainback_tb``; ``t0`` is the absolute trellis
-    step of ``dec_words[0]`` (only ``t0 mod (K-1)`` matters)."""
+    Same contract and output forms as ``kernels.chainback_tb``; ``t0`` is
+    the absolute trellis step of ``dec_words[0]`` (only ``t0 mod (K-1)``
+    matters).  Metrics that ``acs_update_inplace`` returned after
+    ``dec_words`` are in position space of phase ``(t0 + t_real) mod
+    (K-1)``: pass that as ``metrics_phase``."""
     if not dec_words.is_cuda:
-        return chainback_inplace_ref(code, dec_words, endstate, t_real, t0)
-    return launch_chainback("chainback_inplace", "viterbi_chainback_inplace", code, dec_words,
-                            endstate, t_real, 15, int(t0) % (code.K - 1))
+        return chainback_inplace_ref(code, dec_words, endstate, t_real, t0, form, lo, hi,
+                                     out=out, start=start, metrics=metrics,
+                                     metrics_phase=metrics_phase)
+    return launch_chainback("chainback_inplace", True, code, dec_words, endstate, t_real, 15,
+                            int(t0) % (code.K - 1), form, lo, hi, out, start, metrics,
+                            metrics_phase)

@@ -14,6 +14,13 @@ Layout is the Pallas kernels' state-major one: metrics ``[S, B]``, symbols
 ``[Tp, R, B]``, decision words ``[Tp, W, B]`` (int32 holding uint32 bits,
 bit ``s % 32`` of word ``s // 32`` for new state ``s``).  ``Tp`` may be any
 length ``>= t_real``; words at steps ``>= t_real`` are undefined.
+
+The traceback kernel writes its output in one of ``FORMS`` itself -- the
+Pallas layout's packed words, a byte a step for a range of steps, or data
+bytes MSB-first -- and takes its end state from an int, a tensor, or the
+argmin of the frame's metrics; a frame may start its walk from state 0 at a
+step of its own.  So a decoder's traceback, a stream's release and a time
+block's walk are one launch each (``chainback_tb``'s docstring).
 """
 
 from __future__ import annotations
@@ -26,17 +33,21 @@ import torch
 import torch.nn.functional as F
 
 from ...configs import CodeSpec, NumericSpec
-from ...utils.bits import pack_bits_to_words
+from ...utils.bits import bits_to_bytes, pack_bits_to_words
 from .. import acs, chainback
 from ..branch import packed_transition_table
 from . import _build
+from .walk import _end_args
 
 __all__ = ["acs_update_tb", "acs_update_tb_ref", "chainback_tb", "chainback_tb_ref",
-           "acs_smem_bytes", "complement_form", "warp_lane_table", "launch_acs_tb"]
+           "acs_smem_bytes", "complement_form", "warp_lane_table", "launch_acs_tb",
+           "argmin_states", "FORMS"]
 
 STAGE = 32     # symbol steps staged per shared-memory refill (kStage in the source)
 TB_WARPS = 2   # warps a block of the K <= 9 warp form (kTbWarpThreads / 32)
 TB_MAX_K = 24  # chainback_tb's largest trellis: 2^18 words a step
+FORMS = ("words", "bits", "bytes")  # the tracebacks' output forms (CbOut in the source)
+_END_ARGMIN = 3  # the end-state kind that takes the argmin of the metrics (CbEnd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,7 +133,7 @@ def _state_order_words(code: CodeSpec, numeric: NumericSpec, m_bs: torch.Tensor,
 
 
 def acs_update_tb_ref(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor,
-                      symbols_trb: torch.Tensor, t_real: int):
+                      symbols_trb: torch.Tensor, t_real: int, out: torch.Tensor | None = None):
     """Plain version of ``acs_update_tb`` (words past ``t_real`` are zero)."""
     S, B = metrics_sb.shape
     Tp = symbols_trb.shape[0]
@@ -132,29 +143,52 @@ def acs_update_tb_ref(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Te
     dec = torch.zeros((Tp, code.decision_words, B), dtype=torch.int32,
                       device=metrics_sb.device)
     dec[:t_real] = words.permute(1, 2, 0)
-    return m.T.contiguous(), dec
+    return m.T.contiguous(), _into(out, dec)
 
 
 def acs_update_tb(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor,
-                  symbols_trb: torch.Tensor, t_real: int):
+                  symbols_trb: torch.Tensor, t_real: int, out: torch.Tensor | None = None):
     """Whole-frame ACS in state order.
 
     Args:
       metrics_sb: ``[S, B]`` int32.
       symbols_trb: ``[Tp, R, B]`` int32, ``Tp >= t_real``.
       t_real: true number of trellis steps; later steps are never run.
+      out: where the words go, or None for a new tensor: a contiguous
+        ``[Tp, W, B]`` int32 view (rows of a stream's window).
 
     Returns ``(metrics [S, B] int32, dec_words [Tp, W, B] int32)``.
     """
     if not metrics_sb.is_cuda:
-        return acs_update_tb_ref(code, numeric, metrics_sb, symbols_trb, t_real)
-    return launch_acs_tb("acs_update_tb", 1, code, numeric, metrics_sb, symbols_trb, t_real)
+        return acs_update_tb_ref(code, numeric, metrics_sb, symbols_trb, t_real, out)
+    return launch_acs_tb("acs_update_tb", 1, code, numeric, metrics_sb, symbols_trb, t_real, out)
+
+
+def _into(out: torch.Tensor | None, dec: torch.Tensor) -> torch.Tensor:
+    """The plain versions' words, copied into ``out`` where one is given."""
+    if out is None:
+        return dec
+    return out.copy_(dec)
+
+
+def words_out(out: torch.Tensor | None, code: CodeSpec, Tp: int, B: int,
+              device: torch.device) -> torch.Tensor:
+    """The ``[Tp, W, B]`` int32 words tensor an ACS kernel writes: ``out``,
+    checked, or a new one."""
+    if out is None:
+        return torch.empty((Tp, code.decision_words, B), dtype=torch.int32, device=device)
+    _build.check_cuda_int32("out", out, (Tp, code.decision_words, B))
+    if out.device != device:
+        raise ValueError(f"out: expected a tensor on {device}, got {out.device}")
+    return out
 
 
 def launch_acs_tb(counter: str, depth: int, code: CodeSpec, numeric: NumericSpec,
-                  metrics_sb: torch.Tensor, symbols_trb: torch.Tensor, t_real: int):
+                  metrics_sb: torch.Tensor, symbols_trb: torch.Tensor, t_real: int,
+                  out: torch.Tensor | None = None):
     """Check and launch the state-order ACS at ``depth`` 1 or 2 (the warp
-    form for K <= 9, whatever the depth)."""
+    form for K <= 9, whatever the depth), its words into ``out`` where one is
+    given."""
     S, B = metrics_sb.shape
     Tp = symbols_trb.shape[0]
     t_real = _check_t_real(t_real, Tp)
@@ -165,7 +199,7 @@ def launch_acs_tb(counter: str, depth: int, code: CodeSpec, numeric: NumericSpec
                          f"Tp * W * B = {Tp * code.decision_words * B} does not fit")
     dev = metrics_sb.device
     m_out = torch.empty_like(metrics_sb)
-    dec = torch.empty((Tp, code.decision_words, B), dtype=torch.int32, device=dev)
+    dec = words_out(out, code, Tp, B, dev)
     _build.launch(
         counter, "viterbi_acs_tb" if depth == 1 else "viterbi_acs_tb2", dev,
         metrics_sb.data_ptr(), symbols_trb.data_ptr(), device_table(code, dev).data_ptr(),
@@ -175,60 +209,182 @@ def launch_acs_tb(counter: str, depth: int, code: CodeSpec, numeric: NumericSpec
     return m_out, dec
 
 
-def walk_ref(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor, t_real: int,
-             rotated: bool = False, p0: int = 0) -> torch.Tensor:
-    """Plain reverse walk shared by both tracebacks: ``[ceil(Tp/32), B]``
-    int32, bit ``t % 32`` of word ``t // 32`` = walk output at step ``t``
-    (zero past ``t_real``).  ``rotated``: state ``s``'s decision at step
-    ``t`` sits at position ``rotr(s, (t + 1 + p0) mod (K-1))``."""
+def _end_states(code: CodeSpec, endstate, batch: int, device: torch.device) -> torch.Tensor:
+    """``endstate`` (an int, or a 0-d, ``[B]`` or ``[1, B]`` tensor) as the
+    ``[1, B]`` int32 tensor the plain walks read.  A tensor stays on its
+    device: nothing here waits for the stream."""
+    mask = code.num_states - 1
+    if isinstance(endstate, torch.Tensor):
+        end = endstate.to(device=device, dtype=torch.int32) & mask
+        return end.reshape(1, -1).expand(1, batch).contiguous()
+    return torch.full((1, batch), int(endstate) & mask, dtype=torch.int32, device=device)
+
+
+def _check_form(form: str, lo: int, hi: int, t_real: int) -> None:
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if form != "words" and not (0 <= lo <= hi <= t_real):
+        raise ValueError(f"outputs [{lo}, {hi}) outside the walk's {t_real} steps")
+    if form == "bytes" and (hi - lo) % 8:
+        raise ValueError(f"bit count {hi - lo} not a multiple of 8")
+
+
+def _form_shape(form: str, B: int, Tp: int, lo: int, hi: int) -> tuple:
+    if form == "words":
+        return (-(-Tp // 32), B)
+    return (B, hi - lo) if form == "bits" else (B, (hi - lo) // 8)
+
+
+def argmin_states(code: CodeSpec, metrics: torch.Tensor, phase: int = 0) -> torch.Tensor:
+    """``[B]`` int32: the first state of least metric of each frame, from
+    ``metrics [S, B]`` (any strides) held in position space of rotation
+    phase ``phase`` (state ``s`` at position ``rotr(s, phase)``; 0: state
+    order)."""
+    nrot, S = code.K - 1, code.num_states
+    c = phase % nrot
+    if c:
+        s = torch.arange(S, device=metrics.device)
+        metrics = metrics[((s >> c) | (s << (nrot - c))) & (S - 1)]
+    return torch.argmin(metrics, dim=0).to(torch.int32)
+
+
+def walk_ref(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
+             rotated: bool = False, p0: int = 0, form: str = "words", lo: int = 0,
+             hi: int | None = None, out: torch.Tensor | None = None,
+             start: torch.Tensor | None = None, metrics: torch.Tensor | None = None,
+             metrics_phase: int = 0) -> torch.Tensor:
+    """Plain reverse walk shared by both tracebacks, in each output form
+    (``chainback_tb``'s contract).  ``rotated``: state ``s``'s decision at
+    step ``t`` sits at position ``rotr(s, (t + 1 + p0) mod (K-1))``.  A
+    frame's start step is its words zeroed from that step on and its end
+    state 0 (a zero word is "every decision 0" in either packing)."""
     Tp, W, B = dec_words.shape
     t_real = _check_t_real(t_real, Tp)
-    ks, _ = chainback.walk(code, dec_words[:t_real].permute(2, 0, 1), endstate.reshape(B),
-                           rotated, p0)
-    nw = -(-Tp // 32)
-    return pack_bits_to_words(F.pad(ks, (0, 32 * nw - t_real))).T.contiguous()
+    hi = t_real if hi is None else int(hi)
+    _check_form(form, lo, hi, t_real)
+    dev = dec_words.device
+    if metrics is not None:
+        end = argmin_states(code, metrics.to(dev), metrics_phase)
+    else:
+        end = _end_states(code, endstate, B, dev).reshape(B)
+    words = dec_words[:t_real]
+    if start is not None:
+        first = start.to(device=dev, dtype=torch.int64).reshape(B)
+        live = torch.arange(t_real, device=dev)[:, None] < first
+        words = torch.where(live[:, None, :], words, torch.zeros((), dtype=words.dtype, device=dev))
+        end = torch.where(first < t_real, torch.zeros_like(end), end)
+    ks, _ = chainback.walk(code, words.permute(2, 0, 1), end, rotated, p0)
+    if form == "words":
+        res = pack_bits_to_words(F.pad(ks, (0, 32 * -(-Tp // 32) - t_real))).T.contiguous()
+    else:
+        res = ks[:, lo:hi].to(torch.uint8)
+        if form == "bytes":
+            res = bits_to_bytes(res)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
-def chainback_tb_ref(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor,
-                     t_real: int) -> torch.Tensor:
+def chainback_tb_ref(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
+                     form: str = "words", lo: int = 0, hi: int | None = None, *,
+                     out: torch.Tensor | None = None, start: torch.Tensor | None = None,
+                     metrics: torch.Tensor | None = None, metrics_phase: int = 0) -> torch.Tensor:
     """Plain version of ``chainback_tb``."""
-    return walk_ref(code, dec_words, endstate, t_real)
+    return walk_ref(code, dec_words, endstate, t_real, False, 0, form, lo, hi, out, start,
+                    metrics, metrics_phase)
 
 
-def launch_chainback(counter: str, fn_name: str, code: CodeSpec, dec_words: torch.Tensor,
-                     endstate: torch.Tensor, t_real: int, max_k: int, *extra) -> torch.Tensor:
+def launch_chainback(counter: str, rot: bool, code: CodeSpec, dec_words: torch.Tensor, endstate,
+                     t_real: int, max_k: int, p0: int = 0, form: str = "words", lo: int = 0,
+                     hi: int | None = None, out: torch.Tensor | None = None,
+                     start: torch.Tensor | None = None, metrics: torch.Tensor | None = None,
+                     metrics_phase: int = 0) -> torch.Tensor:
     """Check and launch one of the two traceback kernels over ``dec_words``
-    of any strides."""
+    of any strides, in the output form ``form``, from the end state that
+    ``endstate`` or ``metrics`` gives."""
     Tp, W, B = dec_words.shape
     t_real = _check_t_real(t_real, Tp)
+    hi = t_real if hi is None else int(hi)
+    _check_form(form, lo, hi, t_real)
     if code.K > max_k:
         raise ValueError(f"{counter}: K <= {max_k}, got K={code.K}")
     if not dec_words.is_cuda or dec_words.dtype != torch.int32 or W != code.decision_words:
         raise ValueError(f"dec_words: expected CUDA int32 [Tp, {code.decision_words}, B], got "
                          f"{dec_words.device} {dec_words.dtype} {tuple(dec_words.shape)}")
-    _build.check_cuda_int32("endstate", endstate, (1, B))
-    nw = -(-Tp // 32)
-    bits = torch.empty((nw, B), dtype=torch.int32, device=dec_words.device)
-    _build.launch(counter, fn_name, dec_words.device, dec_words.data_ptr(), *dec_words.stride(),
-                  endstate.data_ptr(), bits.data_ptr(), code.K, B, t_real, nw, *extra)
-    return bits
+    dev = dec_words.device
+    if metrics is not None:
+        if (metrics.device != dev or metrics.dtype != torch.int32
+                or tuple(metrics.shape) != (code.num_states, B)):
+            raise ValueError(f"metrics: expected {dev} int32 [{code.num_states}, {B}] (any "
+                             f"strides), got {metrics.device} {metrics.dtype} "
+                             f"{tuple(metrics.shape)}")
+        end_ptr, end_kind, end_stride, end_value = None, _END_ARGMIN, 0, 0
+    else:
+        end_ptr, end_kind, end_stride, end_value, _keep = _end_args(endstate, B, dev)
+    if start is not None:
+        _build.check_cuda_int32("start", start, (B,))
+    shape = _form_shape(form, B, Tp, lo, hi)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32 if form == "words" else torch.uint8, device=dev)
+    elif (form == "words" or out.device != dev or out.dtype != torch.uint8
+          or tuple(out.shape) != shape or (shape[1] > 1 and out.stride(1) != 1)):
+        raise ValueError(f"out: expected a {dev} uint8 {list(shape)} tensor with unit column "
+                         f"stride for the {form} form, got {out.device} {out.dtype} "
+                         f"{tuple(out.shape)}")
+    # The walk keeps a chunk's outputs as a word in every form: the bits and
+    # bytes forms give it a scratch to keep them in.
+    scratch = (torch.empty((-(-t_real // 32), B), dtype=torch.int32, device=dev)
+               if form != "words" else None)
+    _build.launch(counter, "viterbi_chainback", dev, int(rot), dec_words.data_ptr(),
+                  *dec_words.stride(), end_kind, end_value, end_ptr, end_stride,
+                  None if metrics is None else metrics.data_ptr(),
+                  *(metrics.stride() if metrics is not None else (0, 0)),
+                  metrics_phase % (code.K - 1), None if start is None else start.data_ptr(),
+                  FORMS.index(form), out.data_ptr(), out.stride(0) if form != "words" else 0,
+                  None if scratch is None else scratch.data_ptr(), lo, hi, code.K, B, t_real,
+                  shape[0] if form == "words" else 0, p0)
+    key = f"{counter}:{form}" + (":argmin" if metrics is not None else "")
+    _build.FORM_LAUNCHES[key] = _build.FORM_LAUNCHES.get(key, 0) + 1
+    return out
 
 
-def chainback_tb(code: CodeSpec, dec_words: torch.Tensor, endstate: torch.Tensor,
-                 t_real: int) -> torch.Tensor:
+def chainback_tb(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
+                 form: str = "words", lo: int = 0, hi: int | None = None, *,
+                 out: torch.Tensor | None = None, start: torch.Tensor | None = None,
+                 metrics: torch.Tensor | None = None, metrics_phase: int = 0) -> torch.Tensor:
     """Traceback over state-order (canonical) words, K <= ``TB_MAX_K``.
 
     Args:
       dec_words: ``[Tp, W, B]`` int32 of any strides: from ``acs_update_tb``,
         or above K=15 the batch-major words ``[B, T, W]`` of the large-K
         updates as ``words.permute(1, 2, 0)``, walked where they lie.
-      endstate: ``[1, B]`` int32 survivor state at step ``t_real``.
+      endstate: survivor state at step ``t_real``: an int, or a 0-d, ``[B]``
+        or ``[1, B]`` int32 or uint8 device tensor, read where it lies.
       t_real: the walk starts at step ``t_real - 1``.
+      form: ``"words"``: packed trellis bits ``[ceil(Tp/32), B]`` int32, bit
+        ``t % 32`` of word ``t // 32`` the walk output at step t (data bit
+        ``t - K + 1``); ``"bits"``: the outputs of steps ``[lo, hi)`` as
+        uint8 ``[B, hi - lo]``; ``"bytes"``: the same packed MSB-first,
+        ``[B, (hi - lo) // 8]`` (``lo = K-1``: the data bytes).
+      hi: defaults to ``t_real``.
+      out: where the bits or bytes go: a uint8 tensor of that shape with
+        unit column stride and any row stride (a view of a larger tensor).
+      start: ``[B]`` int32 on the device, or None: where ``start[b] <
+        t_real``, frame b's walk starts from state 0 at step ``start[b]``
+        and its outputs above are 0 -- the walk of its words zeroed from
+        that step on.
+      metrics: ``[S, B]`` int32 (any strides: ``m.T`` of a batch-major
+        ``[B, S]``), or None: the end state is each frame's first state of
+        least metric (``torch.argmin``), taken by the kernel; ``endstate``
+        is then unused.  ``metrics_phase``: the metrics are in position
+        space of that rotation phase (0: state order).
 
-    Returns packed trellis bits ``[ceil(Tp/32), B]`` int32 -- bit ``t % 32``
-    of word ``t // 32`` is the walk output at step t (data bit ``t - K + 1``).
+    The kernel writes every form itself; a CPU tensor takes the plain
+    version (``chainback_tb_ref``).
     """
     if not dec_words.is_cuda:
-        return chainback_tb_ref(code, dec_words, endstate, t_real)
-    return launch_chainback("chainback_tb", "viterbi_chainback_tb", code, dec_words,
-                            endstate, t_real, TB_MAX_K)
+        return chainback_tb_ref(code, dec_words, endstate, t_real, form, lo, hi, out=out,
+                                start=start, metrics=metrics, metrics_phase=metrics_phase)
+    return launch_chainback("chainback_tb", False, code, dec_words, endstate, t_real, TB_MAX_K,
+                            0, form, lo, hi, out, start, metrics, metrics_phase)
