@@ -31,7 +31,10 @@ two tracebacks -- bits of a range of steps, data bytes, into a view with a
 row stride, the end state as the argmin of ``[S, B]`` and ``[B, S]``
 metrics, a start step a frame -- against the words form and the plain
 conversion, at K=7 B=64 and B=512, a K=7 window at an odd ``t0``, K=9 soft16
-B=512, Cassini B=64 and B=256 and ICE B=8), then drives nine paths --
+B=512, Cassini B=64 and B=256 and ICE B=8; and the three whole-frame ACS
+kernels -- ``acs_update_tb``, ``acs_update_inplace`` and ``acs_update_tb2``
+-- on batch-major views of the inputs of their timing rows, the decoder's
+layout, against their contiguous launch), then drives nine paths --
 through ``ViterbiDecoder(backend="cuda")``,
 ``dispatch.phase_fns``, the benchmark runner, ``StreamingDecoder``, the BER
 harness and the sharded decodes of ``parallel`` -- each with the launch
@@ -75,10 +78,10 @@ counts zeroed just before it and read just after:
   second push releases the same bits, two noisy pushes equal
   ``backend="torch"``'s; the steady-state push rate and the host's
   microseconds to issue a push beside the batch update rate of the same code
-  and batch (a push is the symbols' layout copy, the update into the
-  stream's window, the walk that takes the argmin and writes the released
-  bits, and the retained rows' copy: its device operations are traced at the
-  end);
+  and batch (a push is the update, which reads the pushed symbols where they
+  lie, into the stream's window, the walk that takes the argmin and writes
+  the released bits, and the retained rows' copy: its device operations are
+  traced at the end);
 * the AWGN and replica path: a BER point at VITERBI27 soft16, B=512,
   256-byte frames, 3 dB on the kernels through the curve CLI's own function
   (``harness.ber_curve.main``; coded BER below uncoded); the
@@ -127,8 +130,10 @@ times the tracebacks' bits, bytes and argmin forms beside their words
 rows, counts their launches by form over the nine paths, and counts the
 launches a call of the state-order and large-K updates
 (``acs_update_large``: as many as ``large_k.plan`` gives, one a call on
-chip) and the device operations of a steady stream push from a profiler
-trace.  Every number line carries the card's name and power limit.  The last three lines
+chip), the device operations of a whole-frame decoder update on both routes
+and of a steady stream push from a profiler trace, and the glue around the
+update kernel (the decoder's update phase less the kernel alone on the
+decoder's batch-major inputs).  Every number line carries the card's name and power limit.  The last three lines
 are a JSON object listing the kernels, the card's name and power limit, and a
 JSON object ``{"ok": true, "device": ...}``.
 
@@ -311,6 +316,22 @@ def timed_ms(fn, iters: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """``timed_ms`` with the calls queued behind a spin kernel
+    (``torch.cuda._sleep``, some 25 ms), so that the events bracket the
+    calls' device work and not the host's issue of the first call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -1242,6 +1263,45 @@ def phase_kernels_inplace_forms(tag, rng, errs):
           f"bit-identical")
 
 
+# The whole-frame ACS kernels' timing rows and their shapes: each also runs
+# on batch-major views of its compared inputs (``phase_kernels_views``).
+VIEW_ROWS = (("acs_update_tb", None, "K=7 B=64"), ("acs_update_inplace", None, "K=7 B=512"),
+             ("acs_update_inplace", "k15", "Cassini B=256"), ("acs_update_tb2", None, "K=7 B=1024"),
+             ("acs_update_tb2", "k9", "K=9 soft16 B=1024"))
+
+
+def phase_kernels_views(tag, errs):
+    """Rows 1, 3 and 5 (``acs_update_tb``, ``acs_update_inplace``,
+    ``acs_update_tb2``) on batch-major views of the inputs they were
+    compared on -- symbols ``[B, T, R]`` handed over as ``permute(1, 2, 0)``
+    and metrics ``[B, S]`` as ``.T``, the decoder's layout -- against their
+    contiguous launch on those inputs (the launch the plain version was held
+    to): metrics and words must be identical.  Both launches timed by CUDA
+    events, in turns."""
+    fns = {"acs_update_tb": kernels.acs_update_tb, "acs_update_inplace": inplace.acs_update_inplace,
+           "acs_update_tb2": kernels2.acs_update_tb2}
+    for name, key, label in VIEW_ROWS:
+        args = compared_args(name, key)
+        code, numeric, m0, s, T = args[:5]
+        s_bm, m_bm = s.permute(2, 0, 1).contiguous(), m0.T.contiguous()
+        view_args = (code, numeric, m_bm.T, s_bm.permute(1, 2, 0), *args[4:])
+        fn = fns[name]
+        m_c, d_c = fn(*args)
+        m_v, d_v = fn(*view_args)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(m_v, m_c), max_abs_err(d_v[:T], d_c[:T]))
+        errs[name] = max(errs[name], check(f"{name} {label} on batch-major views", err))
+        del m_c, d_c, m_v, d_v
+        iters = 3 if code.K > 9 else 10
+        ms = [timed_ms(lambda: fn(*a), iters) for a in (args, view_args, view_args, args)]
+        print(f"[{tag}] {name} {label} T={T} on batch-major views: max_abs_err {err} against the "
+              f"contiguous launch; {(ms[1] + ms[2]) / 2:.4f} ms (views) against "
+              f"{(ms[0] + ms[3]) / 2:.4f} ms ([Tp, R, B] and [S, B] contiguous), in turns "
+              f"{', '.join(f'{x:.4f}' for x in ms)}")
+        del s_bm, m_bm, view_args
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_tb_forms(tag, rng, errs):
     """The state-order ACS through both entry points (the warp form up to
     K=9, the block forms at K=10), each case against its plain version and
@@ -1599,14 +1659,22 @@ def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
     return launches
 
 
-def trace_push(fn, attempts: int = 3) -> tuple[int, dict[str, int], str]:
+def trace_ops(fn, attempts: int = 3) -> tuple[int, dict[str, int], str, dict[str, int]]:
+    """``trace_push``'s trace, and the device operations that are not the
+    port's kernels, by name."""
+    names: dict[str, int] = {}
+    n_ops, port, attempt = trace_push(fn, attempts, names)
+    return n_ops, port, attempt, names
+
+
+def trace_push(fn, attempts: int = 3, others: dict | None = None) -> tuple[int, dict[str, int], str]:
     """Device operations in one call of ``fn`` (after one untraced call), by
     a profiler trace: ``(operations of any origin -- kernels, copies, fills --,
     {port kernel: launches}, which trace)``.  A trace is complete when it
     holds as many of the port's kernels as the wrappers' counters say the
     call launched; an incomplete one is taken again, up to ``attempts``
     times.  ``(-1, {}, ...)`` where the profiler recorded no device
-    operation."""
+    operation.  ``others``: filled with the other operations by name."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1618,11 +1686,18 @@ def trace_push(fn, attempts: int = 3) -> tuple[int, dict[str, int], str]:
         launched = sum(_build.LAUNCHES.values()) - before
         device_ops = [e for e in prof.events()
                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if not device_ops and attempt < attempts:
+            continue  # a trace with no device event at all is taken again
         port = {}
+        if others is not None:
+            others.clear()
         for e in device_ops:
             hit = re.search(r"(\w+)(<[^()]*>)?\(", e.name)
             if hit and hit.group(1) in PORT_KERNELS:
                 port[hit.group(1)] = port.get(hit.group(1), 0) + 1
+            elif others is not None:
+                name = e.name[:60]
+                others[name] = others.get(name, 0) + 1
         if not device_ops:
             return -1, {}, f"trace {attempt}"
         if sum(port.values()) >= launched:
@@ -2695,6 +2770,27 @@ def phase_launch_trace(tag, rng, quads):
         print(f"[{tag}] acs_update_large4 ice B={B_ICE} T={n} (path 3's block): "
               f"{launch_text(counts)} a call")
     del m, sym, m10, sym10, m_ice, sym_ice
+    # The decoder's whole-frame update on both routes: device operations of
+    # any origin in one update (its reset, outside the trace, restored by
+    # hand so that nothing is launched for it).
+    for code, B, n_bytes, most in ((CODE, B_INPLACE, FRAME_BYTES, 2), (CODE, B_TB, FRAME_BYTES, 1),
+                                   (VITERBI615, B_CAS_INPLACE, CAS_BYTES, 2)):
+        _, sym = noisy_symbols(soft8_spec(code.R), B, rng, 3, code, n_bytes)
+        dec = ViterbiDecoder(code, soft8_spec(code.R), B, "cuda")
+        m_reset = dec.metrics
+
+        def update():
+            dec.metrics, dec._blocks, dec._steps = m_reset, [], 0
+            dec.update(sym)
+
+        n_ops, port, attempt, names = trace_ops(update)
+        route = "in-place" if dispatch.use_inplace(code, B, "cuda") else "state-order"
+        print(f"[{tag}] decoder {code.name} B={B} ({route}) whole-frame update: " + (
+            "device operations not measured (the profiler recorded none)" if n_ops < 0 else
+            f"{n_ops} device operations ({attempt}), of them the port's kernels "
+            f"{json.dumps(port)}, the others {json.dumps(names)}; at most {most} expected: "
+            f"{'met' if 0 <= n_ops <= most else 'missed'}"))
+        del dec, sym, m_reset
     # Path 7's streams: device operations in a steady push (the third).
     for code, B, n, _, _ in STREAMS:
         _, noisy = noisy_symbols(soft8_spec(code.R), B, rng, 3, code, (3 * n) // 8 + 1)
@@ -2705,8 +2801,8 @@ def phase_launch_trace(tag, rng, quads):
         print(f"[{tag}] stream {code.name} B={B} {n}-step pushes: " + (
             "device operations not measured (the profiler recorded none)" if n_ops < 0 else
             f"{n_ops} device operations a push ({attempt}), of them the port's kernels "
-            f"{json.dumps(port)}") + (f"; at most 5 expected at K=7: "
-                                      f"{'met' if 0 <= n_ops <= 5 else 'missed'}"
+            f"{json.dumps(port)}") + (f"; at most 3 expected at K=7: "
+                                      f"{'met' if 0 <= n_ops <= 3 else 'missed'}"
                                       if code.K == 7 else ""))
         del dec, noisy
     # Path 9's time-block shard body: device operations a call.
@@ -2796,8 +2892,24 @@ def phase_timing_tb2(tag, rng, rows):
         if code in (CODE, VITERBI615):
             d_upd, d_cb = decoder_phases(tag, code, numeric, B, n_bytes, rng,
                                          f"{code.name} (in-place)")
-            print(f"[{tag}] {code.name} B={B} layout copies (decoder phase - phase_fns phase): "
-                  f"update {d_upd - upd:.4f} ms, chainback {d_cb - cb:.4f} ms")
+            _, sym = noisy_symbols(numeric, B, rng, 3, code, n_bytes)
+            dec = ViterbiDecoder(code, numeric, B, "cuda")
+            m = dec.metrics
+            T, iters = sym.shape[1], 10 if code is CODE else 3
+
+            def update():  # from step 0, with nothing launched to get there
+                dec.metrics, dec._blocks, dec._steps = m, [], 0
+                dec.update(sym)
+
+            queued = queued_ms(update, iters)
+            kernel = queued_ms(lambda: inplace.acs_update_inplace(
+                code, numeric, m.T, sym.permute(1, 2, 0), T, 0), iters)
+            print(f"[{tag}] {code.name} B={B} glue around the kernels: decoder update {queued:.4f} "
+                  f"ms queued (one call on an idle card {d_upd:.4f} ms), the kernel alone on the "
+                  f"decoder's batch-major inputs {kernel:.4f} ms queued: {queued - kernel:.4f} ms "
+                  f"({100 * (queued / kernel - 1):.1f} %; phase_fns update {upd:.4f} ms on "
+                  f"[Tp, R, B]); chainback (decoder phase - phase_fns phase) {d_cb - cb:.4f} ms")
+            del sym, m, dec
     with inplace_off():
         for code, n_bytes in ((CODE, FRAME_BYTES), (VITERBI29, 512)):
             for B in (512, B_TB2):
@@ -2843,6 +2955,8 @@ def main() -> int:
     done("state-order forms comparisons")
     phase_kernels_inplace_forms(tag, rng, errs)
     done("in-place forms comparisons")
+    phase_kernels_views(tag, errs)
+    done("whole-frame kernels on batch-major views")
     launches = phase_decode(tag, rng, errs)
     done("the nine paths")
     phase_canary(tag, rng)

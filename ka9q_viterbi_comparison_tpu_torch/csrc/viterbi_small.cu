@@ -13,10 +13,14 @@
 //                                   replace  ops/pallas/inplace.py  acs_update_inplace (_acs_inplace_kernel)
 //   chainback_kernel<ROT=true>      replaces ops/pallas/inplace.py  chainback_inplace  (_chainback_inplace_kernel)
 //
-// Layouts are those of the Pallas kernels (state-major, batch last):
-//   metrics  [S, B] int32
-//   symbols  [Tp, R, B] int32           (Tp >= t_real; steps >= t_real unread)
-//   words    [Tp, W, B] int32 (uint32 bits), W = max(1, S/32); the tracebacks read any strides
+// Layouts are those of the Pallas kernels (state-major, batch last), read
+// by element strides (AcsStrides), so a caller's batch-major [B, T, R]
+// symbols and [B, S] metrics are read where they lie (the K <= 9 warp
+// kernels have a form of their own for the contiguous layout, STD):
+//   metrics  [S, B] int32 of any strides (entry and exit)
+//   symbols  [Tp, R, B] int32 of any strides (Tp >= t_real; steps >= t_real unread)
+//   words    [Tp, W, B] int32 (uint32 bits), W = max(1, S/32), contiguous from
+//            the ACS kernels; the tracebacks read any strides
 //   etab     [S/2] int32, bit 8*x + r = transition_tables(code)[x, r, s2]
 //   traceback output: words [NW, B] int32, bit t%32 of word t/32 = walk output
 //            at step t; or a step a byte, or data bytes MSB-first (CbArgs)
@@ -46,6 +50,32 @@ namespace {
 
 constexpr int kStage = 32;  // symbol steps staged per shared-memory refill
 
+// Element strides of a whole-frame ACS kernel's inputs and exit metrics, as
+// PyTorch's tensor.stride() gives them: symbols (t, r, b), entry metrics
+// (s, b), exit metrics (s, b).  Batch-major callers pass [B, T, R] symbols as
+// their [T, R, B] view (sb the largest stride) and [B, S] metrics as their
+// transpose; the runner's phases pass contiguous [Tp, R, B] and [S, B].
+struct AcsStrides {
+  long long st, sr, sb, ms, mb, os, ob;
+
+  // Whether these are the strides of contiguous [Tp, R, B] symbols and
+  // [S, B] metrics.  The K <= 9 warp kernels then take their STD form, which
+  // addresses them from B and the frame as the kernels did before strides:
+  // on these inputs the strided form's code cost them up to 11 % (K=9 in
+  // place, on an H100), though its fetch runs once a stage, out of the step.
+  __host__ __device__ bool standard(int R, int B) const {
+    return st == (long long)R * B && sr == B && sb == 1 && ms == B && mb == 1 && os == B &&
+           ob == 1;
+  }
+};
+
+// Element (s, b) of the entry (ss, sb: x.ms, x.mb) or exit (x.os, x.ob)
+// metrics; STD: of contiguous [S, B].
+template <bool STD>
+__device__ __forceinline__ long long metric_at(int s, int b, int B, long long ss, long long sb) {
+  return STD ? (long long)((size_t)s * B + b) : s * ss + b * sb;
+}
+
 // Branch penalties of pair s2 for the four (h, b) combos of one step.
 template <int R>
 __device__ __forceinline__ void penalties(int e, int base, const int* coef, int* pen) {
@@ -58,19 +88,22 @@ __device__ __forceinline__ void penalties(int e, int base, const int* coef, int*
   }
 }
 
-// Stage symbols of steps [t, t + kStage) of frame b into ssym[u*R + r].
-// Loads go up to four at a time into registers before any store, with
-// addresses clamped to the frame, so that they are in flight together.
+// Stage symbols of steps [t, t + kStage) of one frame (sym: its first
+// symbol; st, sr: the step and symbol strides) into ssym[u*R + r].  Loads go
+// up to four at a time into registers before any store, with addresses
+// clamped to the frame, so that they are in flight together.  Thread i reads
+// (u, r) = (i / R, i % R): in batch-major symbols consecutive threads read
+// consecutive words.
 template <int R>
 __device__ __forceinline__ void stage_symbols(const int* __restrict__ sym, int* ssym,
-                                              int t, int t_real, int B, int b) {
+                                              int t, int t_real, long long st, long long sr) {
   constexpr int N = kStage * R;
   for (int i0 = threadIdx.x; i0 < N; i0 += 4 * blockDim.x) {
     int v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int i = min(i0 + k * (int)blockDim.x, N - 1), u = i / R;
-      v[k] = sym[((size_t)min(t + u, t_real - 1) * R + (i - u * R)) * B + b];
+      v[k] = sym[min(t + u, t_real - 1) * st + (i - u * R) * sr];
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -116,17 +149,17 @@ template <int R>
 __global__ void acs_tb_block_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                               const int* __restrict__ etab, int* __restrict__ metrics_out,
                               int* __restrict__ dec, int K, int low, int hl, int B,
-                              int t_real) {
+                              int t_real, AcsStrides x) {
   const int S = 1 << (K - 1), S2 = S >> 1, W = S >= 32 ? S >> 5 : 1, S32 = W * 32;
   const int b = blockIdx.x;
   Smem sm = carve(2 * S, S2, R, S32);
-  for (int s = threadIdx.x; s < S; s += blockDim.x) sm.m[s] = metrics_in[(size_t)s * B + b];
+  for (int s = threadIdx.x; s < S; s += blockDim.x) sm.m[s] = metrics_in[s * x.ms + b * x.mb];
   for (int i = threadIdx.x; i < S2; i += blockDim.x) sm.et[i] = etab[i];
 
   for (int t = 0; t < t_real; ++t) {
     if ((t % kStage) == 0) {
       __syncthreads();
-      stage_symbols<R>(sym, sm.ssym, t, t_real, B, b);
+      stage_symbols<R>(sym + b * x.sb, sm.ssym, t, t_real, x.st, x.sr);
       __syncthreads();
     }
     const int* cur = sm.m + (t & 1) * S;
@@ -156,7 +189,7 @@ __global__ void acs_tb_block_kernel(const int* __restrict__ metrics_in, const in
   }
   __syncthreads();
   const int* fin = sm.m + (t_real & 1) * S;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[(size_t)s * B + b] = fin[s];
+  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[s * x.os + b * x.ob] = fin[s];
 }
 
 // OR-reduce v over aligned groups of `width` lanes (a power of two <= 32).
@@ -204,14 +237,14 @@ template <int R>
 __global__ void acs_tb2_block_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                                const int* __restrict__ etab, int* __restrict__ metrics_out,
                                int* __restrict__ dec, int K, int low, int hl, int B,
-                               int t_real) {
+                               int t_real, AcsStrides x) {
   const int S = 1 << (K - 1), S2 = S >> 1, n4 = S >> 2, W = S >= 32 ? S >> 5 : 1;
   const int b = blockIdx.x, j = threadIdx.x;
   const bool active = j < n4;
   extern __shared__ __align__(16) int smem2[];
   int* m = smem2;          // 2 * S metrics, ping-pong by pair
   int* ssym = m + 2 * S;   // kStage * R staged symbols
-  for (int s = threadIdx.x; s < S; s += blockDim.x) m[s] = metrics_in[(size_t)s * B + b];
+  for (int s = threadIdx.x; s < S; s += blockDim.x) m[s] = metrics_in[s * x.ms + b * x.mb];
   const int jj = active ? j : 0;
   const int eA0 = etab[jj], eA1 = etab[jj + n4], eB0 = etab[2 * jj], eB1 = etab[2 * jj + 1];
   const int shA = (2 * j) & 31, shB = (4 * j) & 31;
@@ -221,7 +254,7 @@ __global__ void acs_tb2_block_kernel(const int* __restrict__ metrics_in, const i
     if ((t % kStage) == 0) {
       // Every thread is past the barrier that ended the previous pair, so
       // the staged symbols are free to be overwritten.
-      stage_symbols<R>(sym, ssym, t, t_real, B, b);
+      stage_symbols<R>(sym + b * x.sb, ssym, t, t_real, x.st, x.sr);
       __syncthreads();
     }
     const bool both = t + 1 < t_real;
@@ -279,7 +312,7 @@ __global__ void acs_tb2_block_kernel(const int* __restrict__ metrics_in, const i
     cur ^= 1;
   }
   const int* fin = m + cur * S;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[(size_t)s * B + b] = fin[s];
+  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[s * x.os + b * x.ob] = fin[s];
 }
 
 // ---------------------------------------------------------------------------
@@ -380,23 +413,32 @@ extern __shared__ int smem_w[];       // the warp forms' shared memory, by word 
 // symbols staged by cp.async, at the top of stage s; the symbols of stage
 // s+2 are fetched then.  Step t of the frame is step t + vlo of virtual time
 // (the in-place form's rotation offset; 0 in state order).
-template <int STG, bool COLS = false>
+//
+// A fetch reads the 32 steps of a stage of one frame, lane l step l: R words
+// a step.  STD (contiguous [Tp, R, B] symbols): R*B words apart, addressed
+// from B and the frame b.  Else at element strides ts (step) and rs (symbol)
+// from the frame's first symbol: in batch-major symbols ([B, T, R] as a
+// [T, R, B] view) the R loads of a warp read one contiguous run of 32 R
+// words between them.
+template <int STG, bool COLS = false, bool STD = true>
 struct WarpStages {
   static constexpr int XS = COLS ? STG + 1 : 1;  // words between P(x) and P(x+1) of a step
   int* tab;    // [2][table]
   int* ysm;    // [2][R][32] staged symbols, lane = step
-  const int* sym;
+  const int* sym;  // STD: the symbols; else the frame's first symbol
+  long long ts, rs;
   int R, US, BUF, low, hl, B, b, lane, vlo, t_real;
 
   // Words of shared memory one warp takes.
   static __host__ __device__ constexpr int words(int R) {
     return 2 * (COLS ? (1 << R) * (STG + 1) : STG * ((1 << R) + 1)) + 2 * 32 * R;
   }
-  __device__ __forceinline__ WarpStages(int* base, const int* sym_, int R_, int low_, int hl_,
-                                        int B_, int b_, int lane_, int vlo_, int t_real_)
-      : tab(base), sym(sym_), R(R_), US(COLS ? 1 : (1 << R_) + 1),
-        BUF(COLS ? (1 << R_) * (STG + 1) : STG * ((1 << R_) + 1)), low(low_), hl(hl_), B(B_),
-        b(b_), lane(lane_), vlo(vlo_), t_real(t_real_) {
+  __device__ __forceinline__ WarpStages(int* base, const int* sym_, const AcsStrides& x,
+                                        int R_, int low_, int hl_, int B_, int b_, int lane_,
+                                        int vlo_, int t_real_)
+      : tab(base), sym(STD ? sym_ : sym_ + b_ * x.sb), ts(x.st), rs(x.sr), R(R_),
+        US(COLS ? 1 : (1 << R_) + 1), BUF(COLS ? (1 << R_) * (STG + 1) : STG * ((1 << R_) + 1)),
+        low(low_), hl(hl_), B(B_), b(b_), lane(lane_), vlo(vlo_), t_real(t_real_) {
     ysm = tab + 2 * BUF;
   }
 
@@ -406,8 +448,14 @@ struct WarpStages {
   }
   __device__ __forceinline__ void fetch(int s) const {  // symbols of stage s, row = lane
     const int t = min(max(s * STG + lane - vlo, 0), t_real - 1);
-    for (int r = 0; r < R; ++r)
-      cp_async4(&ysm[((s & 1) * R + r) * 32 + lane], &sym[((size_t)t * R + r) * B + b]);
+    if (STD) {
+      for (int r = 0; r < R; ++r)
+        cp_async4(&ysm[((s & 1) * R + r) * 32 + lane], &sym[((size_t)t * R + r) * B + b]);
+    } else {
+      const int* src = sym + t * ts;
+      int* dst = ysm + (s & 1) * R * 32 + lane;
+      for (int r = 0; r < R; ++r, src += rs, dst += 32) cp_async4(dst, src);
+    }
     cp_async_commit();
   }
   __device__ __forceinline__ void build(int s) const {  // the penalties of stage s
@@ -514,12 +562,12 @@ struct WarpAcs {
   }
 };
 
-template <int K, bool COMP>
+template <int K, bool COMP, bool STD>
 __global__ void __launch_bounds__(kAcsWarpThreads)
 acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                         const int* __restrict__ postab, int* __restrict__ metrics_out,
                         int* __restrict__ dec, int R, int low, int hl, int csum, int B,
-                        int t_real, int p0) {
+                        int t_real, int p0, AcsStrides x) {
   using A = WarpAcs<K, COMP>;
   constexpr int NROT = A::NROT, S = A::S, NR = A::NR, STG = A::STG;
   A a;
@@ -540,7 +588,7 @@ acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restric
 
 #pragma unroll
   for (int r = 0; r < NR; ++r)
-    a.m[r] = (32 * r + lane < S) ? metrics_in[(size_t)(32 * r + lane) * B + b] : 0;
+    a.m[r] = (32 * r + lane < S) ? metrics_in[metric_at<STD>(32 * r + lane, b, B, x.ms, x.mb)] : 0;
 #pragma unroll
   for (int c = 0; c < NROT; ++c)
 #pragma unroll
@@ -552,7 +600,7 @@ acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restric
 
   // Virtual time v = t + p0 (p0 < K-1), so that a rotation starts at phase 0.
   const int vlo = p0, vhi = p0 + t_real;
-  const WarpStages<STG> st(smem_w + a.pen, sym, R, low, hl, B, b, lane, vlo, t_real);
+  const WarpStages<STG, false, STD> st(smem_w + a.pen, sym, x, R, low, hl, B, b, lane, vlo, t_real);
   st.run((vhi + STG - 1) / STG, [&](int s) {
     const int v0 = s * STG;
     if (v0 >= vlo && v0 + STG <= vhi) {
@@ -566,7 +614,7 @@ acs_inplace_warp_kernel(const int* __restrict__ metrics_in, const int* __restric
 
 #pragma unroll
   for (int r = 0; r < NR; ++r)
-    if (32 * r + lane < S) metrics_out[(size_t)(32 * r + lane) * B + b] = a.m[r];
+    if (32 * r + lane < S) metrics_out[metric_at<STD>(32 * r + lane, b, B, x.os, x.ob)] = a.m[r];
 }
 
 // ---------------------------------------------------------------------------
@@ -654,17 +702,18 @@ struct WarpTb {
   }
 };
 
-template <int K, bool COMP>
+template <int K, bool COMP, bool STD>
 __global__ void __launch_bounds__(kTbWarpThreads)
 acs_tb_warp_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                    const int* __restrict__ lanetab, int* __restrict__ metrics_out,
-                   int* __restrict__ dec, int R, int low, int hl, int csum, int B, int t_real) {
+                   int* __restrict__ dec, int R, int low, int hl, int csum, int B, int t_real,
+                   AcsStrides x) {
   using A = WarpTb<K, COMP>;
   constexpr int S = A::S, NR = A::NR, STG = 32;
-  using Stages = WarpStages<STG, true>;
+  using Stages = WarpStages<STG, true, STD>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;  // this warp's frame
-  const Stages st(smem_w + warp * Stages::words(R), sym, R, low, hl, B, b, lane, 0, t_real);
+  const Stages st(smem_w + warp * Stages::words(R), sym, x, R, low, hl, B, b, lane, 0, t_real);
   if (b >= B) return;  // a warp with no frame (whole warps only)
 
   A a;
@@ -672,7 +721,7 @@ acs_tb_warp_kernel(const int* __restrict__ metrics_in, const int* __restrict__ s
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     const int n = 32 * r + lane;
-    a.m[r] = n < S ? metrics_in[(size_t)n * B + b] : 0;
+    a.m[r] = n < S ? metrics_in[metric_at<STD>(n, b, B, x.ms, x.mb)] : 0;
     // low pattern | high pattern << 8 | low source lane << 16 | high source lane << 24
     const unsigned e = (unsigned)lanetab[n];
     ao[r] = e & 0xff;
@@ -706,7 +755,7 @@ acs_tb_warp_kernel(const int* __restrict__ metrics_in, const int* __restrict__ s
 
 #pragma unroll
   for (int r = 0; r < NR; ++r)
-    if (32 * r + lane < S) metrics_out[(size_t)(32 * r + lane) * B + b] = a.m[r];
+    if (32 * r + lane < S) metrics_out[metric_at<STD>(32 * r + lane, b, B, x.os, x.ob)] = a.m[r];
 }
 
 // The block form, K = 10..15 (KT = 0: K at run time).  Shared memory: S
@@ -719,7 +768,7 @@ __global__ void __launch_bounds__(1024)
 acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restrict__ sym,
                          const int* __restrict__ pair32, const unsigned char* __restrict__ pair8,
                          int* __restrict__ metrics_out, int* __restrict__ dec, int k_arg, int R,
-                         int low, int hl, int csum, int B, int t_real, int p0) {
+                         int low, int hl, int csum, int B, int t_real, int p0, AcsStrides x) {
   const int K = KT ? KT : k_arg;
   const int nrot = K - 1, S = 1 << nrot, S2 = S >> 1, W = S >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -742,11 +791,14 @@ acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restri
     pat8 = reinterpret_cast<const unsigned char*>(copy);  // visible after the barriers below
   }
 
+  // Thread i stages (step, symbol) = (i / R, i % R): in batch-major symbols
+  // the 32 steps of a stage are one contiguous run, read in order.
+  const int* fsym = sym + b * x.sb;
   auto fetch = [&](int s) {
     if ((int)threadIdx.x < 32 * R) {
       const int u = threadIdx.x / R, r = threadIdx.x - u * R;
       const int t = min(32 * s + u, t_real - 1);
-      cp_async4(&ysm[(s & 1) * 32 * R + threadIdx.x], &sym[((size_t)t * R + r) * B + b]);
+      cp_async4(&ysm[(s & 1) * 32 * R + threadIdx.x], &fsym[t * x.st + r * x.sr]);
     }
     cp_async_commit();
   };
@@ -763,7 +815,7 @@ acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restri
     }
   };
 
-  for (int s = threadIdx.x; s < S; s += blockDim.x) m[s] = metrics_in[(size_t)s * B + b];
+  for (int s = threadIdx.x; s < S; s += blockDim.x) m[s] = metrics_in[s * x.ms + b * x.mb];
   fetch(0);
   cp_async_wait<0>();
   __syncthreads();
@@ -891,7 +943,7 @@ acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restri
   }
   cp_async_wait<0>();
   __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[(size_t)s * B + b] = m[s];
+  for (int s = threadIdx.x; s < S; s += blockDim.x) metrics_out[s * x.os + b * x.ob] = m[s];
 }
 
 // ---------------------------------------------------------------------------
@@ -1267,6 +1319,7 @@ struct TbArgs {
   const int *m_in, *sym, *etab, *lanetab;
   int *m_out, *dec;
   int K, R, low, hl, B, t_real;
+  AcsStrides x;
   cudaStream_t stream;
 };
 
@@ -1285,12 +1338,13 @@ int tb_smem(int K, int R, int depth) {
 template <int K, bool COMP>
 cudaError_t launch_tb_warp(const TbArgs& a) {
   const int wpb = kTbWarpThreads / 32, smem = tb_warp_smem(a.R);
-  auto kernel = acs_tb_warp_kernel<K, COMP>;
+  auto kernel = a.x.standard(a.R, a.B) ? acs_tb_warp_kernel<K, COMP, true>
+                                       : acs_tb_warp_kernel<K, COMP, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<(a.B + wpb - 1) / wpb, kTbWarpThreads, smem, a.stream>>>(
       a.m_in, a.sym, a.lanetab, a.m_out, a.dec, a.R, a.low, a.hl, a.R * (a.hl - 2 * a.low), a.B,
-      a.t_real);
+      a.t_real, a.x);
   return cudaGetLastError();
 }
 
@@ -1318,7 +1372,7 @@ cudaError_t launch_tb_block(const TbArgs& a, int depth) {
   // Depth 2: S/4 threads a frame, in whole warps.
   const int threads = depth == 2 ? ((1 << (a.K - 3)) + 31) / 32 * 32 : acs_threads(a.K);
   kernel<<<a.B, threads, smem, a.stream>>>(a.m_in, a.sym, a.etab, a.m_out, a.dec, a.K, a.low,
-                                           a.hl, a.B, a.t_real);
+                                           a.hl, a.B, a.t_real, a.x);
   return cudaGetLastError();
 }
 
@@ -1380,6 +1434,7 @@ struct InplaceArgs {
   const unsigned char* pair8;
   int *m_out, *dec;
   int K, R, low, hl, B, t_real, p0;
+  AcsStrides x;
   cudaStream_t stream;
 };
 
@@ -1387,12 +1442,13 @@ template <int K, bool COMP>
 cudaError_t launch_inplace_warp(const InplaceArgs& a) {
   const int wpb = acs_warp_wpb(K, a.R), smem = wpb * acs_warp_bytes(K, a.R);
   const int blocks = (a.B + wpb - 1) / wpb;
-  auto kernel = acs_inplace_warp_kernel<K, COMP>;
+  auto kernel = a.x.standard(a.R, a.B) ? acs_inplace_warp_kernel<K, COMP, true>
+                                       : acs_inplace_warp_kernel<K, COMP, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, wpb * 32, smem, a.stream>>>(a.m_in, a.sym, a.postab, a.m_out, a.dec, a.R, a.low,
                                                a.hl, a.R * (a.hl - 2 * a.low), a.B, a.t_real,
-                                               a.p0);
+                                               a.p0, a.x);
   return cudaGetLastError();
 }
 
@@ -1404,7 +1460,8 @@ cudaError_t launch_inplace_block(const InplaceArgs& a) {
   if (err != cudaSuccess) return err;
   kernel<<<a.B, acs_threads(a.K), smem, a.stream>>>(a.m_in, a.sym, a.pair32, a.pair8, a.m_out,
                                                     a.dec, a.K, a.R, a.low, a.hl,
-                                                    a.R * (a.hl - 2 * a.low), a.B, a.t_real, a.p0);
+                                                    a.R * (a.hl - 2 * a.low), a.B, a.t_real, a.p0,
+                                                    a.x);
   return cudaGetLastError();
 }
 
@@ -1463,22 +1520,28 @@ cudaError_t launch_chainback(const CbArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // State-order ACS, depth 1 (acs_update_tb) and depth 2 (acs_update_tb2).
-// etab: packed_transition_table (the block forms); lanetab: warp_lane_table
-// (ops/cuda/kernels.py; the warp form); comp: every polynomial taps both
-// register ends (complement_form).
-int viterbi_acs_tb(const void* m_in, const void* sym, const void* etab, const void* lanetab,
-                   void* m_out, void* dec, int K, int R, int comp, int low, int hl, int B,
-                   int t_real, void* stream) {
+// Entry metrics (s, b) at s*ms + b*mb, symbols (t, r, b) at t*st + r*sr +
+// b*sb, exit metrics at s*os + b*ob (element strides, any layout); words
+// [Tp, W, B] contiguous.  etab: packed_transition_table (the block forms);
+// lanetab: warp_lane_table (ops/cuda/kernels.py; the warp form); comp: every
+// polynomial taps both register ends (complement_form).
+int viterbi_acs_tb(const void* m_in, long long ms, long long mb, const void* sym, long long st,
+                   long long sr, long long sb, const void* etab, const void* lanetab,
+                   void* m_out, long long os, long long ob, void* dec, int K, int R, int comp,
+                   int low, int hl, int B, int t_real, void* stream) {
   const TbArgs a{(const int*)m_in, (const int*)sym, (const int*)etab, (const int*)lanetab,
-                 (int*)m_out, (int*)dec, K, R, low, hl, B, t_real, (cudaStream_t)stream};
+                 (int*)m_out, (int*)dec, K, R, low, hl, B, t_real,
+                 AcsStrides{st, sr, sb, ms, mb, os, ob}, (cudaStream_t)stream};
   return (int)tb_dispatch(a, comp != 0, 1);
 }
 
-int viterbi_acs_tb2(const void* m_in, const void* sym, const void* etab, const void* lanetab,
-                    void* m_out, void* dec, int K, int R, int comp, int low, int hl, int B,
-                    int t_real, void* stream) {
+int viterbi_acs_tb2(const void* m_in, long long ms, long long mb, const void* sym, long long st,
+                    long long sr, long long sb, const void* etab, const void* lanetab,
+                    void* m_out, long long os, long long ob, void* dec, int K, int R, int comp,
+                    int low, int hl, int B, int t_real, void* stream) {
   const TbArgs a{(const int*)m_in, (const int*)sym, (const int*)etab, (const int*)lanetab,
-                 (int*)m_out, (int*)dec, K, R, low, hl, B, t_real, (cudaStream_t)stream};
+                 (int*)m_out, (int*)dec, K, R, low, hl, B, t_real,
+                 AcsStrides{st, sr, sb, ms, mb, os, ob}, (cudaStream_t)stream};
   return (int)tb_dispatch(a, comp != 0, 2);
 }
 
@@ -1486,18 +1549,21 @@ int viterbi_acs_tb2(const void* m_in, const void* sym, const void* etab, const v
 // ops/cuda/kernels.py acs_smem_bytes mirrors).
 int viterbi_acs_tb_smem(int K, int R, int depth) { return tb_smem(K, R, depth); }
 
-// postab, pair32, pair8: the host tables of ops/cuda/inplace.py
-// (position_tables, pair_tables and the low byte of pair_tables); comp: every
-// polynomial taps both register ends (complement_form).  p0 < K-1.
-int viterbi_acs_inplace(const void* m_in, const void* sym, const void* postab,
-                        const void* pair32, const void* pair8, void* m_out, void* dec, int K,
-                        int R, int comp, int low, int hl, int B, int t_real, int p0,
-                        void* stream) {
+// Metrics, symbols and words as for viterbi_acs_tb (element strides, words
+// contiguous).  postab, pair32, pair8: the host tables of
+// ops/cuda/inplace.py (position_tables, pair_tables and the low byte of
+// pair_tables); comp: every polynomial taps both register ends
+// (complement_form).  p0 < K-1.
+int viterbi_acs_inplace(const void* m_in, long long ms, long long mb, const void* sym,
+                        long long st, long long sr, long long sb, const void* postab,
+                        const void* pair32, const void* pair8, void* m_out, long long os,
+                        long long ob, void* dec, int K, int R, int comp, int low, int hl, int B,
+                        int t_real, int p0, void* stream) {
   if (K < 2 || K > 15 || R < 1 || R > 8 || B < 1 || t_real < 1 || p0 < 0 || p0 >= K - 1)
     return (int)cudaErrorInvalidValue;
   const InplaceArgs a{(const int*)m_in, (const int*)sym, (const int*)postab, (const int*)pair32,
                       (const unsigned char*)pair8, (int*)m_out, (int*)dec, K, R, low, hl, B,
-                      t_real, p0, (cudaStream_t)stream};
+                      t_real, p0, AcsStrides{st, sr, sb, ms, mb, os, ob}, (cudaStream_t)stream};
   return (int)(comp ? inplace_dispatch<true>(a) : inplace_dispatch<false>(a));
 }
 

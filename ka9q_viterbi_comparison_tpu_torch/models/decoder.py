@@ -13,6 +13,15 @@ Backends:
 
 ``device`` defaults to ``"cuda"``: the decoder runs on the card unless the
 caller asks for the CPU.
+
+On the routes of the whole-frame kernels (``dispatch.whole_frame``) the
+decoder keeps its words in the kernels' layout: one buffer ``[Tcap, W, B]``
+into whose rows each update's kernel writes (``out=``), grown by doubling,
+which the traceback walks where it lies.  An update there is the kernel
+reading the caller's batch-major symbols and the metrics where they lie
+(and on the in-place route at most a gather of the ``[B, S]`` metrics at
+each block edge off rotation phase 0); its offset is zero, so nothing is
+added to ``renorm_offset``.
 """
 
 from __future__ import annotations
@@ -77,32 +86,81 @@ class ViterbiDecoder:
         self.metrics = acs.init_metrics(self.code, self.numeric, self.batch, starting_state,
                                         self.device)
         self.renorm_offset = torch.zeros((self.batch,), dtype=torch.int32, device=self.device)
-        self._decision_blocks: list[torch.Tensor] = []
+        self._buf: torch.Tensor | None = None  # the whole-frame routes' words [Tcap, W, B]
+        # Each update's words: a [B, t, W] tensor, or its row range (lo, hi) of _buf.
+        self._blocks: list = []
         self._steps = 0  # trellis steps consumed (blockwise resume cursor)
+
+    def _whole_frame(self) -> bool:
+        return self.backend == "cuda" and dispatch.whole_frame(self.code, self.batch, self.device)
+
+    def _rows(self, lo: int, n: int) -> torch.Tensor:
+        """Rows ``[lo, lo + n)`` of the word buffer, which grows by doubling
+        (its first ``lo`` rows copied over) when it has fewer."""
+        hi = lo + n
+        if self._buf is None or self._buf.shape[0] < hi:
+            cap = hi if self._buf is None else max(hi, 2 * self._buf.shape[0])
+            buf = torch.empty((cap, self.code.decision_words, self.batch), dtype=torch.int32,
+                              device=self.device)
+            if self._buf is not None and lo:
+                buf[:lo] = self._buf[:lo]
+            self._buf = buf
+        return self._buf[lo:hi]
+
+    @property
+    def _decision_blocks(self) -> list[torch.Tensor]:
+        """Each update's decision words ``[B, t, W]`` (views of the word
+        buffer on the whole-frame routes)."""
+        return [b if isinstance(b, torch.Tensor) else self._buf[b[0]:b[1]].permute(2, 0, 1)
+                for b in self._blocks]
+
+    @_decision_blocks.setter
+    def _decision_blocks(self, blocks: list[torch.Tensor]) -> None:
+        """Load decision words ``[B, t, W]`` a block (a resumed decoder's
+        history): into the word buffer on the whole-frame routes."""
+        self._buf, self._blocks, lo = None, [], 0
+        for words in blocks:
+            n = words.shape[1]
+            if self._whole_frame():
+                self._rows(lo, n).copy_(words.permute(1, 2, 0))
+                self._blocks.append((lo, lo + n))
+            else:
+                self._blocks.append(words)
+            lo += n
 
     # -- phase 2: symbol update (ref: update_viterbi27_blk_sse2) --
     def update(self, symbols) -> None:
         """Consume ``[B, n*R]`` (or ``[B, n, R]``) soft symbols; resumable in
         blocks like the reference's update (viterbi27_sse2.cpp:119)."""
         symbols = as_symbols(symbols, self.device).reshape(self.batch, -1, self.code.R)
-        if self.backend == "cuda":
+        lo, n = self._steps, symbols.shape[1]
+        if self._whole_frame():
             # t0 keeps the in-place kernel's rotation phases (and decision
-            # packing positions) globally consistent across blocks.
-            self.metrics, words, off = dispatch.acs_update(
-                self.code, self.numeric, self.metrics, symbols, self._steps)
+            # packing positions) globally consistent across blocks.  The
+            # offset is zero here.
+            self.metrics, _, _ = dispatch.acs_update(self.code, self.numeric, self.metrics,
+                                                     symbols, lo, self._rows(lo, n))
+            self._blocks.append((lo, lo + n))
         else:
-            self.metrics, words, off = acs.acs_update(
-                self.code, self.numeric, self.metrics, symbols, fused_penalties=True)
-        self.renorm_offset = self.renorm_offset + off
-        self._decision_blocks.append(words)
-        self._steps += symbols.shape[1]
+            if self.backend == "cuda":
+                self.metrics, words, off = dispatch.acs_update(
+                    self.code, self.numeric, self.metrics, symbols, lo)
+            else:
+                self.metrics, words, off = acs.acs_update(
+                    self.code, self.numeric, self.metrics, symbols, fused_penalties=True)
+            self.renorm_offset = self.renorm_offset + off
+            self._blocks.append(words)
+        self._steps = lo + n
 
     # -- phase 3: chainback (ref: chainback_viterbi27_sse2) --
     def chainback(self, num_data_bits: int, endstate: int = 0) -> torch.Tensor:
         """Decode ``[B, num_data_bits // 8]`` uint8 from the accumulated
         decision history."""
-        words = (self._decision_blocks[0] if len(self._decision_blocks) == 1
-                 else torch.cat(self._decision_blocks, dim=1))
+        if self._blocks and all(isinstance(b, tuple) for b in self._blocks):
+            words = self._buf[:self._steps].permute(2, 0, 1)  # walked where it lies
+        else:
+            blocks = self._decision_blocks
+            words = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
         if self.backend == "cuda":
             return dispatch.chainback(self.code, words, num_data_bits, endstate)
         return cb.chainback(self.code, words, num_data_bits, endstate)

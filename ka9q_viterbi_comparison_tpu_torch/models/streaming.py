@@ -22,16 +22,16 @@ The window.  The history lives in one buffer ``[Tcap, W, B]`` in the
 kernels' layout, allocated at the first push with room for the traceback
 depth and the push padded to whole traceback words, and grown only when a
 larger push comes.  On the routes of the whole-frame kernels (the in-place
-pair, and the state-order pair for K <= 9) a push is a handful of launches,
-the counterpart of the one program the JAX stream compiles for each shape:
-the symbols' layout copy; the update, whose decisions go straight into rows
-``[h, h + n)`` of the window (``out=``); the walk, which takes the end state
-as the argmin of the metrics itself and writes the released bits straight
-into the returned ``[B, m]`` tensor (its ``bits`` form); and one copy of the
-retained rows to the front of the window.  The metrics stay in the kernels'
-``[S, B]`` (position space of the stream head's phase on the in-place
-route); ``metrics`` and ``checkpoint`` give them batch-major in state order,
-``[B, S]``, as the JAX package does.  The large-K route updates through
+pair, and the state-order pair for K <= 9) a push is three launches, the
+counterpart of the one program the JAX stream compiles for each shape: the
+update, which reads the pushed batch-major symbols where they lie and writes
+its decisions straight into rows ``[h, h + n)`` of the window (``out=``);
+the walk, which takes the end state as the argmin of the metrics itself and
+writes the released bits straight into the returned ``[B, m]`` tensor (its
+``bits`` form); and one copy of the retained rows to the front of the
+window.  The metrics stay in the kernels' ``[S, B]`` (position space of the
+stream head's phase on the in-place route); ``metrics`` and ``checkpoint``
+give them batch-major in state order, ``[B, S]``, as the JAX package does.  The large-K route updates through
 ``dispatch.acs_update`` and copies its words into the window.
 
 Whether the history is position-packed is decided once, at construction, by
@@ -175,7 +175,7 @@ class StreamingDecoder:
         h, Tw = self._len, self._len + n
         rows = self._window(Tw)[h:Tw]  # where this push's decisions go
         if self._native:
-            sym = symbols.permute(1, 2, 0).contiguous()  # the kernels' [n, R, B]
+            sym = symbols.permute(1, 2, 0)  # the kernels' [n, R, B], a view
             if self._rotated:
                 self._m, _ = inplace.acs_update_inplace(self.code, self.numeric, self._m, sym, n,
                                                         self.abs_step, out=rows)

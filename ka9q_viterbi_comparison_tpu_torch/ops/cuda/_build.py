@@ -68,10 +68,16 @@ _L = ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 # extern "C" entry points of the sources: name -> argtypes.
 _SIGNATURES = {
-    "viterbi_acs_tb": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "viterbi_acs_tb2": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # The whole-frame ACS launchers: entry metrics and their (s, b) strides,
+    # symbols and their (t, r, b) strides, the tables, exit metrics and their
+    # strides, the words, then the scalars (kernels.acs_launch_args).
+    "viterbi_acs_tb": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _P),
+    "viterbi_acs_tb2": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
     "viterbi_acs_tb_smem": (_I, _I, _I),
-    "viterbi_acs_inplace": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "viterbi_acs_inplace": (_P, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _L, _L, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace_smem": (_I, _I, _I),
     "viterbi_chainback": (_I, _P, _L, _L, _L, _I, _I, _P, _L, _P, _L, _L, _I, _P, _I, _P, _L,
                           _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -157,14 +163,17 @@ def build_seconds() -> float:
     return sum(_build_seconds)
 
 
-def check_cuda_int32(name: str, t: torch.Tensor, shape: tuple) -> None:
+def check_cuda_int32(name: str, t: torch.Tensor, shape: tuple, contiguous: bool = True) -> None:
+    """Refuse what a launcher cannot take: a tensor off the card, of another
+    dtype or shape, or (``contiguous``) one that is not contiguous.  With
+    ``contiguous=False`` any strides pass: the kernel reads them."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
         raise ValueError(f"{name}: expected int32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 

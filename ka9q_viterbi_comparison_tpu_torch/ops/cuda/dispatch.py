@@ -5,7 +5,11 @@ Port of ``ka9q_viterbi_comparison_tpu/ops/pallas/dispatch.py`` (``acs_update``,
 ``supports_chainback``, ``unpack_bit_words``, ``phase_fns`` and
 ``_inplace_phase_fns`` with their chains).  It bridges the batch-major public
 API (``[B, ...]`` tensors, the layout of the portable path) to the kernels'
-layouts.
+layouts.  The JAX dispatch pads the batch to 128 lanes and transposes
+symbols and metrics, because on a TPU the frames are the lanes; on the card
+a warp or a block owns a frame, and the whole-frame kernels read the
+caller's batch-major symbols and metrics by their strides, so
+``acs_update`` hands them views: no pad and no copy.
 
 Routes, decided on the code and the batch B alone so that update and
 chainback agree:
@@ -60,12 +64,15 @@ from .. import acs, radix_planes as rp
 from . import flags, inplace, kernels, kernels2, large_k2, large_k4, walk
 
 __all__ = ["acs_update", "chainback", "phase_fns", "make_chains", "use_inplace", "supports",
-           "supports_chainback", "shared_cap", "fits_shared", "unpack_bit_words", "walk_bytes"]
+           "whole_frame", "zero_offset", "supports_chainback", "shared_cap", "fits_shared",
+           "unpack_bit_words", "walk_bytes"]
 
 
+@functools.lru_cache(maxsize=None)
 def shared_cap(device: torch.device) -> int | None:
     """The shared memory a block of the card of ``device`` may opt in to
-    (``torch.cuda.get_device_properties``); None off a card."""
+    (``torch.cuda.get_device_properties``, read once a device: every
+    update and traceback routes by it); None off a card."""
     if device.type != "cuda":
         return None
     props = torch.cuda.get_device_properties(device)
@@ -110,6 +117,26 @@ def use_inplace(code: CodeSpec, batch: int, device: torch.device | str = "cpu") 
     return fits_shared(code, torch.device(device))
 
 
+def whole_frame(code: CodeSpec, batch: int, device: torch.device | str = "cpu") -> bool:
+    """Whether ``acs_update`` takes a whole-frame kernel at this batch (the
+    in-place pair, or the state-order pair for K <= 9): its words can go
+    into ``out=`` rows and its offset is zero.  Else the large-K route."""
+    return use_inplace(code, batch, device) or supports(code)
+
+
+@functools.lru_cache(maxsize=None)
+def _zero(device: torch.device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def zero_offset(batch: int, device: torch.device | str) -> torch.Tensor:
+    """The renormalisation offset of the whole-frame routes: ``[batch]``
+    int32 zeros as a stride-0 view of one cached device zero, so that a call
+    launches nothing for it.  Equal to the JAX package's zero offset; an
+    in-place write to it raises (its elements share one location)."""
+    return _zero(torch.device(device)).expand(batch)
+
+
 def unpack_bit_words(bits_words: torch.Tensor, T: int) -> torch.Tensor:
     """``[Tp//32, B]`` int32 -> trellis bits ``[B, T]`` uint8."""
     return unpack_words_to_bits(bits_words.T)[:, :T]
@@ -122,23 +149,25 @@ def _rot_index(code: CodeSpec, t: int, inverse: bool, device: torch.device) -> t
     return torch.as_tensor(inplace.rot_perm(code, t, inverse), device=device)
 
 
-def _inplace_update(code, numeric, metrics, symbols, t0):
-    """Batch-major wrapper over the in-place kernel.  Metrics cross the call
-    in state order: one gather each way at the block edges, at the rotation
-    phases ``t0`` and ``t0 + T``."""
+def _inplace_update(code, numeric, metrics, symbols, t0, out):
+    """Batch-major wrapper over the in-place kernel, which reads the
+    symbols ``[B, T, R]`` and metrics ``[B, S]`` where they lie and writes
+    the exit metrics through the transpose of a new ``[B, S]``.  Metrics
+    cross the call in state order: a gather where a block edge is not at
+    rotation phase 0, at ``t0`` before the kernel and at ``t0 + T`` after."""
     B, T, R = symbols.shape
     nrot = code.K - 1
     t0 = int(t0) % nrot
     dev = metrics.device
-    sym = symbols.to(torch.int32).permute(1, 2, 0).contiguous()  # [T, R, B]
-    m = metrics.to(torch.int32).T
+    m = metrics.to(torch.int32)
     if t0:
-        m = m[_rot_index(code, t0, False, dev)]
-    m, dec = inplace.acs_update_inplace(code, numeric, m.contiguous(), sym, T, t0)
+        m = m[:, _rot_index(code, t0, False, dev)]
+    m, dec = inplace.acs_update_inplace(code, numeric, m.T, symbols.to(torch.int32).permute(1, 2, 0),
+                                        T, t0, out)
+    m = m.T  # [B, S]: the exit metrics come in the entry metrics' layout
     if (t0 + T) % nrot:
-        m = m[_rot_index(code, (t0 + T) % nrot, True, dev)]
-    words = dec.permute(2, 0, 1)  # [B, T, W], position-packed
-    return m.T.contiguous(), words, torch.zeros((B,), dtype=torch.int32, device=dev)
+        m = m[:, _rot_index(code, (t0 + T) % nrot, True, dev)]
+    return m, dec.permute(2, 0, 1), zero_offset(B, dev)  # words [B, T, W], position-packed
 
 
 def _large_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
@@ -165,24 +194,36 @@ _end_states = kernels._end_states  # the plain walks' end state, [1, B] int32
 
 
 def acs_update(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
-               symbols: torch.Tensor, t0: int = 0):
+               symbols: torch.Tensor, t0: int = 0, out: torch.Tensor | None = None):
     """Batch-major wrapper matching ``ops.acs.acs_update``'s contract:
     ``(metrics [B,S], symbols [B,T,R]) -> (metrics, words [B,T,W], offset)``.
 
     ``t0``: trellis steps already consumed (blockwise resume); only the
-    in-place pair reads it.  The offset is zero on the K <= 15 whole-frame
-    routes (int32 has the headroom) and the large-K route's shifts
-    otherwise.
+    in-place pair reads it.  ``out``: on the whole-frame routes
+    (``whole_frame``), a contiguous ``[T, W, B]`` int32 view where the
+    kernel writes the words (rows of a decoder's word buffer); the words
+    returned are then ``out.permute(2, 0, 1)``.
+
+    The whole-frame routes hand the kernels ``symbols.permute(1, 2, 0)`` and
+    ``metrics.T`` as views (any strides) and get the exit metrics as the
+    transpose of a new ``[B, S]``: one launch on the state-order route; on
+    the in-place route the launch and, where ``t0 + T`` is not a multiple of
+    K-1, the gather that takes the exit metrics back to state order (and
+    one before it where ``t0`` is not).  Their offset is ``zero_offset``, a
+    view of a cached zero that costs no launch (int32 has the headroom), as
+    the JAX package's is zero there; the large-K route returns its shifts.
     """
     B, T, R = symbols.shape
     if use_inplace(code, B, metrics.device):
-        return _inplace_update(code, numeric, metrics, symbols, t0)
+        return _inplace_update(code, numeric, metrics, symbols, t0, out)
     if not supports(code):
+        if out is not None:
+            raise ValueError(f"acs_update: {code.name} at B={B} takes the large-K route, whose "
+                             "words do not go into out= rows")
         return _large_update(code, numeric, metrics, symbols)
-    sym = symbols.to(torch.int32).permute(1, 2, 0).contiguous()  # [T, R, B]
-    m, dec = _small_k_impl(B)(code, numeric, metrics.to(torch.int32).T.contiguous(), sym, T)
-    offset = torch.zeros((B,), dtype=torch.int32, device=metrics.device)
-    return m.T.contiguous(), dec.permute(2, 0, 1), offset
+    m, dec = _small_k_impl(B)(code, numeric, metrics.to(torch.int32).T,
+                              symbols.to(torch.int32).permute(1, 2, 0), T, out)
+    return m.T, dec.permute(2, 0, 1), zero_offset(B, metrics.device)
 
 
 def chainback(code: CodeSpec, words: torch.Tensor, num_data_bits: int,

@@ -30,12 +30,14 @@ from ...utils.bits import unpack_words_to_bits
 from ..acs import _pack_decisions
 from ..branch import packed_transition_table
 from . import _build
-from .kernels import (_check_t_real, _into, _state_order_words, complement_form,
-                      launch_chainback, walk_ref, words_out)
+from .kernels import (_check_t_real, _into, _state_order_words, acs_launch_args,
+                      check_acs_inputs, complement_form, launch_chainback, metrics_like,
+                      walk_ref, words_out)
 
 __all__ = [
     "acs_update_inplace",
     "acs_update_inplace_ref",
+    "launch_acs_inplace",
     "chainback_inplace",
     "chainback_inplace_ref",
     "pad_time_inplace",
@@ -182,7 +184,8 @@ def acs_update_inplace_ref(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb:
                            out: torch.Tensor | None = None):
     """Plain version of ``acs_update_inplace``: un-rotate, run the
     state-order ACS, then rotate the final metrics and permute each step's
-    decisions into position order (words past ``t_real`` are zero)."""
+    decisions into position order (words past ``t_real`` are zero; inputs of
+    any strides, exit metrics in ``kernels.metrics_like``)."""
     S, B = metrics_pos_sb.shape
     Tp = symbols_trb.shape[0]
     t_real = _check_t_real(t_real, Tp)
@@ -202,7 +205,7 @@ def acs_update_inplace_ref(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb:
         perms = idx(np.stack([rot_perm(code, t0 + t + 1) for t in range(lo, hi)]))  # [c, S]
         bits_pos = bits.gather(2, perms[None].expand(B, -1, -1))
         dec[lo:hi] = _pack_decisions(bits_pos).permute(1, 2, 0)
-    return m_pos.contiguous(), _into(out, dec)
+    return metrics_like(metrics_pos_sb).copy_(m_pos), _into(out, dec)
 
 
 def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: torch.Tensor,
@@ -211,40 +214,44 @@ def acs_update_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: tor
     """Whole-frame in-place ACS.
 
     Args:
-      metrics_pos_sb: ``[S, B]`` int32 in position space of rotation phase
-        ``t0 mod (K-1)`` (state order when ``t0 == 0``; ``rot_perm``
-        converts).
-      symbols_trb: ``[Tp, R, B]`` int32, ``Tp >= t_real``.
+      metrics_pos_sb: ``[S, B]`` int32 of any strides (``m.T`` of a ``[B,
+        S]``) in position space of rotation phase ``t0 mod (K-1)`` (state
+        order when ``t0 == 0``; ``rot_perm`` converts).
+      symbols_trb: ``[Tp, R, B]`` int32 of any strides, ``Tp >= t_real``
+        (``s.permute(1, 2, 0)`` of a batch-major ``[B, T, R]``).
       t_real: true number of trellis steps in this call.
       t0: trellis steps consumed before this call.
       out: where the words go (a contiguous ``[Tp, W, B]`` int32 view: rows
         of a stream's window), or None for a new tensor.
 
     Returns ``(metrics [S, B] in position space of (t0 + t_real) mod (K-1),
-    dec_words [Tp, W, B] int32 packed in position order)``.
+    in the layout of kernels.metrics_like(metrics_pos_sb), dec_words [Tp, W,
+    B] int32 packed in position order)``.  A CUDA tensor launches the kernel
+    or raises.
     """
     if not metrics_pos_sb.is_cuda:
         return acs_update_inplace_ref(code, numeric, metrics_pos_sb, symbols_trb, t_real, t0, out)
-    S, B = metrics_pos_sb.shape
-    Tp = symbols_trb.shape[0]
-    t_real = _check_t_real(t_real, Tp)
-    _build.check_cuda_int32("metrics_pos_sb", metrics_pos_sb, (code.num_states, B))
-    _build.check_cuda_int32("symbols_trb", symbols_trb, (Tp, code.R, B))
+    return launch_acs_inplace(code, numeric, metrics_pos_sb, symbols_trb, t_real, t0, out)
+
+
+def launch_acs_inplace(code: CodeSpec, numeric: NumericSpec, metrics_pos_sb: torch.Tensor,
+                       symbols_trb: torch.Tensor, t_real: int, t0: int = 0,
+                       out: torch.Tensor | None = None):
+    """Check and launch the in-place ACS on metrics and symbols of any
+    strides (``acs_update_inplace``'s card route)."""
     if not (2 <= code.K <= 15 and 1 <= code.R <= 8):
         raise ValueError(f"{code.name}: the in-place kernel serves 2 <= K <= 15 and R <= 8")
-    if code.K <= 9 and Tp * code.decision_words * B >= 1 << 32:
-        raise ValueError("acs_update_inplace: the K <= 9 kernel indexes its words with 32 bits; "
-                         f"Tp * W * B = {Tp * code.decision_words * B} does not fit")
+    t_real = check_acs_inputs(code, metrics_pos_sb, symbols_trb, t_real)
+    B, Tp = metrics_pos_sb.shape[1], symbols_trb.shape[0]
     dev = metrics_pos_sb.device
-    postab, pair32, pair8 = _device_tables(code, dev)
-    m_out = torch.empty_like(metrics_pos_sb)
+    m_out = metrics_like(metrics_pos_sb)
     dec = words_out(out, code, Tp, B, dev)
     _build.launch(
         "acs_update_inplace", "viterbi_acs_inplace", dev,
-        metrics_pos_sb.data_ptr(), symbols_trb.data_ptr(), postab.data_ptr(), pair32.data_ptr(),
-        pair8.data_ptr(), m_out.data_ptr(), dec.data_ptr(), code.K, code.R,
-        int(complement_form(code)), numeric.soft_low, numeric.soft_high + numeric.soft_low, B,
-        t_real, int(t0) % (code.K - 1))
+        *acs_launch_args(metrics_pos_sb, symbols_trb, _device_tables(code, dev), m_out, dec,
+                         (code.K, code.R, int(complement_form(code)), numeric.soft_low,
+                          numeric.soft_high + numeric.soft_low, B, t_real,
+                          int(t0) % (code.K - 1))))
     return m_out, dec
 
 

@@ -13,7 +13,12 @@ kernel or raises.
 Layout is the Pallas kernels' state-major one: metrics ``[S, B]``, symbols
 ``[Tp, R, B]``, decision words ``[Tp, W, B]`` (int32 holding uint32 bits,
 bit ``s % 32`` of word ``s // 32`` for new state ``s``).  ``Tp`` may be any
-length ``>= t_real``; words at steps ``>= t_real`` are undefined.
+length ``>= t_real``; words at steps ``>= t_real`` are undefined.  The ACS
+kernels read metrics and symbols of any strides (``acs_launch_args`` passes
+each tensor's ``stride()``): a batch-major caller hands them
+``symbols.permute(1, 2, 0)`` of its ``[B, T, R]`` and ``metrics.T`` of its
+``[B, S]``, and gets the exit metrics in the entry metrics' layout
+(``metrics_like``).  Words are written contiguous.
 
 The traceback kernel writes its output in one of ``FORMS`` itself -- the
 Pallas layout's packed words, a byte a step for a range of steps, or data
@@ -41,7 +46,7 @@ from .walk import _end_args
 
 __all__ = ["acs_update_tb", "acs_update_tb_ref", "chainback_tb", "chainback_tb_ref",
            "acs_smem_bytes", "complement_form", "warp_lane_table", "launch_acs_tb",
-           "argmin_states", "FORMS"]
+           "acs_launch_args", "check_acs_inputs", "metrics_like", "argmin_states", "FORMS"]
 
 STAGE = 32     # symbol steps staged per shared-memory refill (kStage in the source)
 TB_WARPS = 2   # warps a block of the K <= 9 warp form (kTbWarpThreads / 32)
@@ -132,9 +137,19 @@ def _state_order_words(code: CodeSpec, numeric: NumericSpec, m_bs: torch.Tensor,
     return m, words
 
 
+def metrics_like(metrics_sb: torch.Tensor) -> torch.Tensor:
+    """The exit metrics tensor of an ACS call: ``torch.empty_like`` the entry
+    metrics, which keeps their strides where they are dense (``m.T`` of a
+    ``[B, S]`` gives ``n.T`` of a new ``[B, S]``), else contiguous ``[S,
+    B]``.  The kernels write through its strides, the plain versions copy
+    into it."""
+    return torch.empty_like(metrics_sb, dtype=torch.int32)
+
+
 def acs_update_tb_ref(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor,
                       symbols_trb: torch.Tensor, t_real: int, out: torch.Tensor | None = None):
-    """Plain version of ``acs_update_tb`` (words past ``t_real`` are zero)."""
+    """Plain version of ``acs_update_tb`` (words past ``t_real`` are zero;
+    inputs of any strides, exit metrics in ``metrics_like``)."""
     S, B = metrics_sb.shape
     Tp = symbols_trb.shape[0]
     t_real = _check_t_real(t_real, Tp)
@@ -143,7 +158,7 @@ def acs_update_tb_ref(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Te
     dec = torch.zeros((Tp, code.decision_words, B), dtype=torch.int32,
                       device=metrics_sb.device)
     dec[:t_real] = words.permute(1, 2, 0)
-    return m.T.contiguous(), _into(out, dec)
+    return metrics_like(metrics_sb).copy_(m.T), _into(out, dec)
 
 
 def acs_update_tb(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor,
@@ -151,13 +166,15 @@ def acs_update_tb(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor
     """Whole-frame ACS in state order.
 
     Args:
-      metrics_sb: ``[S, B]`` int32.
-      symbols_trb: ``[Tp, R, B]`` int32, ``Tp >= t_real``.
+      metrics_sb: ``[S, B]`` int32 of any strides (``m.T`` of a ``[B, S]``).
+      symbols_trb: ``[Tp, R, B]`` int32 of any strides, ``Tp >= t_real``
+        (``s.permute(1, 2, 0)`` of a batch-major ``[B, T, R]``).
       t_real: true number of trellis steps; later steps are never run.
       out: where the words go, or None for a new tensor: a contiguous
         ``[Tp, W, B]`` int32 view (rows of a stream's window).
 
-    Returns ``(metrics [S, B] int32, dec_words [Tp, W, B] int32)``.
+    Returns ``(metrics [S, B] int32 in the layout of metrics_like(metrics_sb),
+    dec_words [Tp, W, B] int32)``.
     """
     if not metrics_sb.is_cuda:
         return acs_update_tb_ref(code, numeric, metrics_sb, symbols_trb, t_real, out)
@@ -183,29 +200,58 @@ def words_out(out: torch.Tensor | None, code: CodeSpec, Tp: int, B: int,
     return out
 
 
+def check_acs_inputs(code: CodeSpec, metrics_sb: torch.Tensor, symbols_trb: torch.Tensor,
+                     t_real: int) -> int:
+    """Refuse what the whole-frame ACS kernels cannot take, by name: a tensor
+    off the card, not int32, or of another shape than ``[S, B]`` and ``[Tp,
+    R, B]`` (any strides pass; there is no copy to fall back on), a
+    ``t_real`` outside ``(0, Tp]``, or more words than the K <= 9 kernels
+    index with 32 bits.  Returns ``t_real``."""
+    B = metrics_sb.shape[-1]
+    Tp = symbols_trb.shape[0]
+    t_real = _check_t_real(t_real, Tp)
+    _build.check_cuda_int32("metrics_sb", metrics_sb, (code.num_states, B), contiguous=False)
+    _build.check_cuda_int32("symbols_trb", symbols_trb, (Tp, code.R, B), contiguous=False)
+    if symbols_trb.device != metrics_sb.device:
+        raise ValueError(f"symbols_trb: expected a tensor on {metrics_sb.device}, got "
+                         f"{symbols_trb.device}")
+    if code.K <= 9 and Tp * code.decision_words * B >= 1 << 32:
+        raise ValueError(f"{code.name}: the K <= 9 kernels index their words with 32 bits; "
+                         f"Tp * W * B = {Tp * code.decision_words * B} does not fit")
+    return t_real
+
+
+def acs_launch_args(metrics_sb: torch.Tensor, symbols_trb: torch.Tensor, tables: tuple,
+                    m_out: torch.Tensor, dec: torch.Tensor, scalars: tuple) -> tuple:
+    """The arguments of a whole-frame ACS launcher (``viterbi_acs_tb``,
+    ``viterbi_acs_tb2``, ``viterbi_acs_inplace``), in their order: entry
+    metrics and their element strides ``(s, b)``, symbols and theirs ``(t,
+    r, b)``, the device tables, exit metrics and their strides, the words,
+    then ``scalars``.  Element ``(s, b)`` of the metrics is read at ``s *
+    ms + b * mb`` words from the pointer, and so on: each tensor's own
+    ``stride()``."""
+    return (metrics_sb.data_ptr(), *metrics_sb.stride(), symbols_trb.data_ptr(),
+            *symbols_trb.stride(), *(t.data_ptr() for t in tables), m_out.data_ptr(),
+            *m_out.stride(), dec.data_ptr(), *scalars)
+
+
 def launch_acs_tb(counter: str, depth: int, code: CodeSpec, numeric: NumericSpec,
                   metrics_sb: torch.Tensor, symbols_trb: torch.Tensor, t_real: int,
                   out: torch.Tensor | None = None):
     """Check and launch the state-order ACS at ``depth`` 1 or 2 (the warp
-    form for K <= 9, whatever the depth), its words into ``out`` where one is
-    given."""
-    S, B = metrics_sb.shape
-    Tp = symbols_trb.shape[0]
-    t_real = _check_t_real(t_real, Tp)
-    _build.check_cuda_int32("metrics_sb", metrics_sb, (code.num_states, B))
-    _build.check_cuda_int32("symbols_trb", symbols_trb, (Tp, code.R, B))
-    if code.K <= 9 and Tp * code.decision_words * B >= 1 << 32:
-        raise ValueError(f"{counter}: the K <= 9 kernel indexes its words with 32 bits; "
-                         f"Tp * W * B = {Tp * code.decision_words * B} does not fit")
+    form for K <= 9, whatever the depth) on metrics and symbols of any
+    strides, its words into ``out`` where one is given."""
+    t_real = check_acs_inputs(code, metrics_sb, symbols_trb, t_real)
+    B, Tp = metrics_sb.shape[1], symbols_trb.shape[0]
     dev = metrics_sb.device
-    m_out = torch.empty_like(metrics_sb)
+    m_out = metrics_like(metrics_sb)
     dec = words_out(out, code, Tp, B, dev)
     _build.launch(
         counter, "viterbi_acs_tb" if depth == 1 else "viterbi_acs_tb2", dev,
-        metrics_sb.data_ptr(), symbols_trb.data_ptr(), device_table(code, dev).data_ptr(),
-        device_lane_table(code, dev).data_ptr(), m_out.data_ptr(), dec.data_ptr(), code.K,
-        code.R, int(complement_form(code)), numeric.soft_low,
-        numeric.soft_high + numeric.soft_low, B, t_real)
+        *acs_launch_args(metrics_sb, symbols_trb,
+                         (device_table(code, dev), device_lane_table(code, dev)), m_out, dec,
+                         (code.K, code.R, int(complement_form(code)), numeric.soft_low,
+                          numeric.soft_high + numeric.soft_low, B, t_real)))
     return m_out, dec
 
 

@@ -34,7 +34,7 @@ import torch
 from ...configs import CodeSpec, NumericSpec
 from ..acs import _pack_decisions
 from ..branch import transition_tables
-from .kernels import _check_t_real, _into, acs_smem_bytes, launch_acs_tb
+from .kernels import _check_t_real, _into, acs_smem_bytes, launch_acs_tb, metrics_like
 
 __all__ = ["acs_update_tb2", "acs_update_tb2_ref", "tb2_smem_bytes"]
 
@@ -63,9 +63,10 @@ def _butterfly(lo: torch.Tensor, hi: torch.Tensor, pen: torch.Tensor):
 
 def acs_update_tb2_ref(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor,
                        symbols_trb: torch.Tensor, t_real: int, out: torch.Tensor | None = None):
-    """Plain version of ``acs_update_tb2`` (words past ``t_real`` are zero):
-    the same pairs in raw butterfly coordinates, written with tensor
-    operations over ``[.., B]``."""
+    """Plain version of ``acs_update_tb2`` (words past ``t_real`` are zero;
+    inputs of any strides, exit metrics in ``kernels.metrics_like``): the
+    same pairs in raw butterfly coordinates, written with tensor operations
+    over ``[.., B]``."""
     _check_code(code)
     S, B = metrics_sb.shape
     Tp = symbols_trb.shape[0]
@@ -101,7 +102,7 @@ def acs_update_tb2_ref(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.T
         # state 4*s2 + 2*b1 + b2 from [b1, b2, s2, B]
         m = torch.stack(fin).permute(2, 0, 1, 3).reshape(S, B)
         dec[t + 1] = words(torch.stack(dfin).permute(2, 0, 1, 3).reshape(S, B))
-    return m.contiguous(), _into(out, dec)
+    return metrics_like(metrics_sb).copy_(m), _into(out, dec)
 
 
 def acs_update_tb2(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tensor,
@@ -110,14 +111,15 @@ def acs_update_tb2(code: CodeSpec, numeric: NumericSpec, metrics_sb: torch.Tenso
     ``kernels.acs_update_tb``.
 
     Args:
-      metrics_sb: ``[S, B]`` int32.
-      symbols_trb: ``[Tp, R, B]`` int32, ``Tp >= t_real``.
+      metrics_sb: ``[S, B]`` int32 of any strides.
+      symbols_trb: ``[Tp, R, B]`` int32 of any strides, ``Tp >= t_real``.
       t_real: true number of trellis steps (odd or even); later steps are
         never run.
       out: where the words go (a contiguous ``[Tp, W, B]`` int32 view), or
         None for a new tensor.
 
-    Returns ``(metrics [S, B] int32, dec_words [Tp, W, B] int32)``.
+    Returns ``(metrics [S, B] int32 in the layout of
+    kernels.metrics_like(metrics_sb), dec_words [Tp, W, B] int32)``.
     """
     if not metrics_sb.is_cuda:
         return acs_update_tb2_ref(code, numeric, metrics_sb, symbols_trb, t_real, out)

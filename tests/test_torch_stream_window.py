@@ -81,6 +81,49 @@ def test_window_releases_match_jax(name, route, monkeypatch):
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
+def test_push_hands_the_update_its_symbols_where_they_lie(route, monkeypatch):
+    """On both K=7 whole-frame routes a push gives the update kernel the
+    pushed batch-major symbols as a view (no copy: their own memory, any
+    strides) and the window's rows as ``out=``; its releases equal those of
+    the same stream fed contiguous ``[n, R, B]`` copies."""
+    from ka9q_viterbi_comparison_tpu_torch.ops.cuda import dispatch, inplace
+
+    sym = torch.from_numpy(_noisy_stream("k7"))
+    seen = []
+
+    def record(fn):
+        def update(code, numeric, m, s, t_real, *rest, out=None):
+            seen.append((s.data_ptr(), s.stride(), out.data_ptr() if out is not None else None))
+            return fn(code, numeric, m, s, t_real, *rest, out=out)
+        return update
+
+    def stream_releases(copy):
+        dec = _stream("k7", ROUTES[route], monkeypatch)
+        out = []
+        for lo, n in _pushes("k7"):
+            push = sym[:, lo:lo + n]
+            out.append(dec.push(push.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+                                if copy else push))
+        return dec, out
+
+    want = stream_releases(copy=True)[1]
+    if ROUTES[route]:
+        monkeypatch.setattr(inplace, "acs_update_inplace", record(inplace.acs_update_inplace))
+    else:
+        real = dispatch._small_k_impl
+        monkeypatch.setattr(dispatch, "_small_k_impl", lambda batch: record(real(batch)))
+    dec, got = stream_releases(copy=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert len(seen) == len(STREAMS["k7"][2])
+    base = sym.data_ptr()
+    for (ptr, stride, out_ptr), (lo, n) in zip(seen, _pushes("k7")):
+        assert ptr == base + 4 * lo * sym.stride(1)  # the pushed symbols' own memory
+        assert stride == (sym.stride(1), sym.stride(2), sym.stride(0))
+        assert out_ptr is not None
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("name", list(STREAMS))
 def test_checkpoint_restores_the_window_mid_stream(name, route, monkeypatch):
     """A checkpoint taken mid-stream, restored on a fresh decoder and on one

@@ -73,6 +73,39 @@ def test_planned_body_matches_jax(mesh_name, route, monkeypatch):
                       if route == "inplace" else ["metrics", "out", "start"])] * 2
 
 
+@pytest.mark.parametrize("route", ["pair", "inplace"])
+def test_body_updates_read_the_plan_buffers(route, monkeypatch):
+    """The body's two whole-frame updates read the plan's own symbol buffers
+    and write into its word buffers: nothing is copied for them (the body
+    stays the blocks' copy, two halo ``index_select``s, the warm-up, one
+    ``where``, the main update and the walk)."""
+    from test_torch_parallel import TB_BATCHES, TB_MESHES, _frames, _pad_erasure
+
+    code, B = P.VITERBI27, TB_BATCHES[("f2t4", route)]
+    mesh = par.Mesh(TB_MESHES["f2t4"], "cpu")
+    if route == "inplace":
+        monkeypatch.setenv("KA9Q_TORCH_INPLACE", "1")
+    seen = []
+
+    def record(fn):
+        def update(code, numeric, m, s, t_real, *rest, out=None):
+            seen.append((s.data_ptr(), out.data_ptr()))
+            return fn(code, numeric, m, s, t_real, *rest, out=out)
+        return update
+
+    if route == "inplace":
+        monkeypatch.setattr(inplace, "acs_update_inplace", record(inplace.acs_update_inplace))
+    else:
+        real = dispatch._small_k_impl
+        monkeypatch.setattr(dispatch, "_small_k_impl", lambda batch: record(real(batch)))
+    sym = _pad_erasure(code, _frames(code, B, 64, "noisy")[1], 4)
+    par.time_block_decode_bits(code, P.soft8_spec(2), sym, mesh)
+    plan = _plans(mesh)[0]
+    assert plan.route == route
+    assert seen == [(plan.warm_sym.data_ptr(), plan.warm_words.data_ptr()),
+                    (plan.main_sym.data_ptr(), plan.main_words.data_ptr())]
+
+
 @pytest.mark.parametrize("axes", [{"time": 4}, {"frame": 2, "time": 4}, {"time": 8}])
 def test_halo_ppermutes_follow_the_model(axes):
     """Each call records the two halo ``ppermute``s of the model, planned or
