@@ -22,6 +22,10 @@ reading the caller's batch-major symbols and the metrics where they lie
 (and on the in-place route at most a gather of the ``[B, S]`` metrics at
 each block edge off rotation phase 0); its offset is zero, so nothing is
 added to ``renorm_offset``.
+
+Under a profiler the phases are the spans ``ka9q.reset``, ``ka9q.update``
+and ``ka9q.chainback``, and the word buffer's growth ``ka9q.alloc``
+(``utils.spans``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from ..configs import CodeSpec, NumericSpec
 from ..ops import acs, chainback as cb
 from ..ops.cuda import dispatch
+from ..utils.spans import span
 
 __all__ = ["ViterbiDecoder", "decode_frames", "resolve_device"]
 
@@ -83,13 +88,15 @@ class ViterbiDecoder:
 
     # -- phase 1: reset (ref: init_viterbi27_sse2, viterbi27_sse2.cpp:42-53) --
     def reset(self, starting_state: int = 0) -> None:
-        self.metrics = acs.init_metrics(self.code, self.numeric, self.batch, starting_state,
-                                        self.device)
-        self.renorm_offset = torch.zeros((self.batch,), dtype=torch.int32, device=self.device)
-        self._buf: torch.Tensor | None = None  # the whole-frame routes' words [Tcap, W, B]
-        # Each update's words: a [B, t, W] tensor, or its row range (lo, hi) of _buf.
-        self._blocks: list = []
-        self._steps = 0  # trellis steps consumed (blockwise resume cursor)
+        with span("ka9q.reset"):
+            self.metrics = acs.init_metrics(self.code, self.numeric, self.batch, starting_state,
+                                            self.device)
+            self.renorm_offset = torch.zeros((self.batch,), dtype=torch.int32,
+                                             device=self.device)
+            self._buf: torch.Tensor | None = None  # the whole-frame routes' words [Tcap, W, B]
+            # Each update's words: a [B, t, W] tensor, or its row range (lo, hi) of _buf.
+            self._blocks: list = []
+            self._steps = 0  # trellis steps consumed (blockwise resume cursor)
 
     def _whole_frame(self) -> bool:
         return self.backend == "cuda" and dispatch.whole_frame(self.code, self.batch, self.device)
@@ -99,12 +106,13 @@ class ViterbiDecoder:
         (its first ``lo`` rows copied over) when it has fewer."""
         hi = lo + n
         if self._buf is None or self._buf.shape[0] < hi:
-            cap = hi if self._buf is None else max(hi, 2 * self._buf.shape[0])
-            buf = torch.empty((cap, self.code.decision_words, self.batch), dtype=torch.int32,
-                              device=self.device)
-            if self._buf is not None and lo:
-                buf[:lo] = self._buf[:lo]
-            self._buf = buf
+            with span("ka9q.alloc"):
+                cap = hi if self._buf is None else max(hi, 2 * self._buf.shape[0])
+                buf = torch.empty((cap, self.code.decision_words, self.batch),
+                                  dtype=torch.int32, device=self.device)
+                if self._buf is not None and lo:
+                    buf[:lo] = self._buf[:lo]
+                self._buf = buf
         return self._buf[lo:hi]
 
     @property
@@ -132,38 +140,40 @@ class ViterbiDecoder:
     def update(self, symbols) -> None:
         """Consume ``[B, n*R]`` (or ``[B, n, R]``) soft symbols; resumable in
         blocks like the reference's update (viterbi27_sse2.cpp:119)."""
-        symbols = as_symbols(symbols, self.device).reshape(self.batch, -1, self.code.R)
-        lo, n = self._steps, symbols.shape[1]
-        if self._whole_frame():
-            # t0 keeps the in-place kernel's rotation phases (and decision
-            # packing positions) globally consistent across blocks.  The
-            # offset is zero here.
-            self.metrics, _, _ = dispatch.acs_update(self.code, self.numeric, self.metrics,
-                                                     symbols, lo, self._rows(lo, n))
-            self._blocks.append((lo, lo + n))
-        else:
-            if self.backend == "cuda":
-                self.metrics, words, off = dispatch.acs_update(
-                    self.code, self.numeric, self.metrics, symbols, lo)
+        with span("ka9q.update"):
+            symbols = as_symbols(symbols, self.device).reshape(self.batch, -1, self.code.R)
+            lo, n = self._steps, symbols.shape[1]
+            if self._whole_frame():
+                # t0 keeps the in-place kernel's rotation phases (and decision
+                # packing positions) globally consistent across blocks.  The
+                # offset is zero here.
+                self.metrics, _, _ = dispatch.acs_update(self.code, self.numeric, self.metrics,
+                                                         symbols, lo, self._rows(lo, n))
+                self._blocks.append((lo, lo + n))
             else:
-                self.metrics, words, off = acs.acs_update(
-                    self.code, self.numeric, self.metrics, symbols, fused_penalties=True)
-            self.renorm_offset = self.renorm_offset + off
-            self._blocks.append(words)
-        self._steps = lo + n
+                if self.backend == "cuda":
+                    self.metrics, words, off = dispatch.acs_update(
+                        self.code, self.numeric, self.metrics, symbols, lo)
+                else:
+                    self.metrics, words, off = acs.acs_update(
+                        self.code, self.numeric, self.metrics, symbols, fused_penalties=True)
+                self.renorm_offset = self.renorm_offset + off
+                self._blocks.append(words)
+            self._steps = lo + n
 
     # -- phase 3: chainback (ref: chainback_viterbi27_sse2) --
     def chainback(self, num_data_bits: int, endstate: int = 0) -> torch.Tensor:
         """Decode ``[B, num_data_bits // 8]`` uint8 from the accumulated
         decision history."""
-        if self._blocks and all(isinstance(b, tuple) for b in self._blocks):
-            words = self._buf[:self._steps].permute(2, 0, 1)  # walked where it lies
-        else:
-            blocks = self._decision_blocks
-            words = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
-        if self.backend == "cuda":
-            return dispatch.chainback(self.code, words, num_data_bits, endstate)
-        return cb.chainback(self.code, words, num_data_bits, endstate)
+        with span("ka9q.chainback"):
+            if self._blocks and all(isinstance(b, tuple) for b in self._blocks):
+                words = self._buf[:self._steps].permute(2, 0, 1)  # walked where it lies
+            else:
+                blocks = self._decision_blocks
+                words = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+            if self.backend == "cuda":
+                return dispatch.chainback(self.code, words, num_data_bits, endstate)
+            return cb.chainback(self.code, words, num_data_bits, endstate)
 
     def path_metric(self, endstate: int = 0) -> torch.Tensor:
         """Accumulated path error of the survivor at ``endstate`` per frame,

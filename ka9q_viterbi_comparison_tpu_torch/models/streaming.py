@@ -39,6 +39,10 @@ the in-place route's predicate (``dispatch.use_inplace`` on the batch), and a
 stream walks by that decision whatever the environment says later.
 ``checkpoint`` gives the history batch-major, ``[B, h, W]``, as the JAX
 package's checkpoint does, and ``restore`` refills the window from it.
+
+Under a profiler a push is the span ``ka9q.push``, with its walk
+(``ka9q.push.walk``) and its copy of the retained rows (``ka9q.push.retain``)
+inside it; the window's growth is ``ka9q.alloc`` (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from ..configs import CodeSpec, NumericSpec
 from ..ops import acs, chainback as cb
 from ..ops.cuda import dispatch, inplace, kernels
+from ..utils.spans import span
 from .decoder import BACKENDS, as_symbols, resolve_device
 
 __all__ = ["StreamingDecoder"]
@@ -166,35 +171,36 @@ class StreamingDecoder:
 
     def push(self, symbols) -> torch.Tensor:
         """Consume symbols, return newly released data bits ``[B, m]`` uint8."""
-        symbols = as_symbols(symbols, self.device).reshape(self.batch, -1, self.code.R)
-        n = symbols.shape[1]
-        if n == 0:
-            return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
-        emit = max(0, (self.abs_step + n - self.traceback_depth) - self.steps_emitted)
-        skip = min(emit, max(0, (self.code.K - 1) - self.steps_emitted)) if emit else 0
-        h, Tw = self._len, self._len + n
-        rows = self._window(Tw)[h:Tw]  # where this push's decisions go
-        if self._native:
-            sym = symbols.permute(1, 2, 0)  # the kernels' [n, R, B], a view
-            if self._rotated:
-                self._m, _ = inplace.acs_update_inplace(self.code, self.numeric, self._m, sym, n,
-                                                        self.abs_step, out=rows)
+        with span("ka9q.push"):
+            symbols = as_symbols(symbols, self.device).reshape(self.batch, -1, self.code.R)
+            n = symbols.shape[1]
+            if n == 0:
+                return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
+            emit = max(0, (self.abs_step + n - self.traceback_depth) - self.steps_emitted)
+            skip = min(emit, max(0, (self.code.K - 1) - self.steps_emitted)) if emit else 0
+            h, Tw = self._len, self._len + n
+            rows = self._window(Tw)[h:Tw]  # where this push's decisions go
+            if self._native:
+                sym = symbols.permute(1, 2, 0)  # the kernels' [n, R, B], a view
+                if self._rotated:
+                    self._m, _ = inplace.acs_update_inplace(self.code, self.numeric, self._m, sym,
+                                                            n, self.abs_step, out=rows)
+                else:
+                    self._m, _ = dispatch._small_k_impl(self.batch)(self.code, self.numeric,
+                                                                    self._m, sym, n, out=rows)
             else:
-                self._m, _ = dispatch._small_k_impl(self.batch)(self.code, self.numeric,
-                                                                self._m, sym, n, out=rows)
-        else:
-            if self.backend == "cuda":
-                self._m, words, _ = dispatch.acs_update(self.code, self.numeric, self._m,
-                                                        symbols, self.abs_step)
-            else:
-                self._m, words, _ = acs.acs_update(self.code, self.numeric, self._m, symbols,
-                                                   fused_penalties=True)
-            rows.copy_(words.permute(1, 2, 0))
-        self.abs_step += n
-        self._len = Tw
-        if emit <= 0:
-            return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
-        return self._release_steps(emit, skip, None)
+                if self.backend == "cuda":
+                    self._m, words, _ = dispatch.acs_update(self.code, self.numeric, self._m,
+                                                            symbols, self.abs_step)
+                else:
+                    self._m, words, _ = acs.acs_update(self.code, self.numeric, self._m, symbols,
+                                                       fused_penalties=True)
+                rows.copy_(words.permute(1, 2, 0))
+            self.abs_step += n
+            self._len = Tw
+            if emit <= 0:
+                return torch.zeros((self.batch, 0), dtype=torch.uint8, device=self.device)
+            return self._release_steps(emit, skip, None)
 
     def flush(self, endstate: int | None = 0) -> torch.Tensor:
         """Release every remaining step (stream over; default: trellis was
@@ -216,12 +222,14 @@ class StreamingDecoder:
         Tw, B = self._len, self.batch
         out = torch.empty((B, emit - skip), dtype=torch.uint8, device=self.device)
         if emit > skip:
-            self._walk(Tw, endstate, skip, emit, out)
+            with span("ka9q.push.walk"):
+                self._walk(Tw, endstate, skip, emit, out)
         keep = Tw - emit
         if keep:
-            src = self._buf[emit:Tw]
-            # Source and destination overlap when the window keeps more than it drops.
-            self._buf[:keep].copy_(src if emit >= keep else src.clone())
+            with span("ka9q.push.retain"):
+                src = self._buf[emit:Tw]
+                # Source and destination overlap when the window keeps more than it drops.
+                self._buf[:keep].copy_(src if emit >= keep else src.clone())
         self._len = keep
         self.steps_emitted += emit
         return out
@@ -230,12 +238,14 @@ class StreamingDecoder:
         """The window buffer, with room for ``Tw`` steps: grown (its ``_len``
         retained steps copied over) only when it has less."""
         if self._buf is None or self._buf.shape[0] < Tw:
-            cap = inplace.pad_time_inplace(self.code, max(Tw, self.traceback_depth + Tw - self._len))
-            buf = torch.empty((cap, self.code.decision_words, self.batch), dtype=torch.int32,
-                              device=self.device)
-            if self._len:
-                buf[:self._len] = self._buf[:self._len]
-            self._buf = buf
+            with span("ka9q.alloc"):
+                cap = inplace.pad_time_inplace(self.code,
+                                               max(Tw, self.traceback_depth + Tw - self._len))
+                buf = torch.empty((cap, self.code.decision_words, self.batch),
+                                  dtype=torch.int32, device=self.device)
+                if self._len:
+                    buf[:self._len] = self._buf[:self._len]
+                self._buf = buf
         return self._buf
 
     def _walk(self, Tw: int, endstate, lo: int, hi: int, out: torch.Tensor) -> None:

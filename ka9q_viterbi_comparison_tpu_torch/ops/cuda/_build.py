@@ -9,7 +9,8 @@ without compiling.
 
 Every wrapper counts its launches in ``LAUNCHES``; a run can zero the counts
 (``reset_launch_counts``) and read them after to show which kernels it went
-through.
+through.  Under a profiler each launcher call is also a ``ka9q.launch.<key>``
+span (``utils.spans``), named by the same key.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import subprocess
 import time
 
 import torch
+
+from ...utils.spans import span
 
 __all__ = ["LAUNCHES", "FORM_LAUNCHES", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
            "Bound", "check_cuda_int32"]
@@ -191,16 +194,19 @@ class Bound:
     the kernel launches the call made to ``counter``: one, or, where the
     launcher reports them through an ``int*`` argument, the value it wrote
     to ``reported`` (the caller passes ``ctypes.pointer(reported)``).  The
-    caller makes the calls with ``device`` current."""
+    call is the span ``ka9q.launch.<counter>``.  The caller makes the calls
+    with ``device`` current."""
 
     def __init__(self, counter: str, fn_name: str, device: torch.device,
                  reported: ctypes.c_int | None = None):
         self.fn_name, self.counter, self.reported = fn_name, counter, reported
+        self.span_name = f"ka9q.launch.{counter}"
         self.fn = library()[fn_name]
         self.stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
     def __call__(self, *args) -> None:
-        err = self.fn(*args, self.stream)
+        with span(self.span_name):
+            err = self.fn(*args, self.stream)
         if err != 0:
             raise RuntimeError(f"{self.fn_name}: CUDA error {err} at launch")
         LAUNCHES[self.counter] += 1 if self.reported is None else self.reported.value

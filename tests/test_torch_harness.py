@@ -20,6 +20,7 @@ from ka9q_viterbi_comparison_tpu.harness import bench as jbench
 from ka9q_viterbi_comparison_tpu_torch.harness import bench, profiling, runner
 from ka9q_viterbi_comparison_tpu_torch.ops.encoder import encode_frames
 from ka9q_viterbi_comparison_tpu_torch.utils import native
+from ka9q_viterbi_comparison_tpu_torch.utils.spans import span
 from test_reference_script_compat import REF_SCRIPTS as REFERENCE_SCRIPTS  # where it is mounted
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -210,11 +211,14 @@ def test_device_busy_ms_is_the_union_of_device_intervals(tmp_path):
 
 
 def test_profiling_timer_trace_and_annotate(tmp_path):
-    t = profiling.Timer()
+    """``device_trace`` writes the Chrome trace of its block, in which the
+    port's named spans (``utils.spans.span``) are ``user_annotation``
+    events; its profiler sums them by name."""
     with profiling.device_trace(str(tmp_path)) as prof:
-        with profiling.annotate("update"):
+        with span("ka9q.update"):
             torch.ones(8).sum()
-    assert t.get_delta_ns() > 0 and t.get_delta_s() > 0
-    assert (tmp_path / "trace.json").stat().st_size > 0
-    assert any(e.key == "update" for e in prof.key_averages())
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert [e["name"] for e in events if e.get("cat") == "user_annotation"] == ["ka9q.update"]
+    assert any(e.key == "ka9q.update" for e in prof.key_averages())
+    assert profiling.device_busy_ms(str(tmp_path)) == 0.0  # no device operation on the CPU
     assert bench.sync(5) == 5
