@@ -383,13 +383,6 @@ __global__ void acs_tb2_block_kernel(const int* __restrict__ metrics_in, const i
 __device__ __forceinline__ void cp_async4(void* dst_shared, const void* src_global) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst_shared)), "l"(src_global) : "memory");
 }
-// The same copy, or 4 zero bytes where `zero` (the source is not read).
-__device__ __forceinline__ void cp_async4_or_zero(void* dst_shared, const void* src_global,
-                                                  bool zero) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst_shared)),
-               "l"(src_global), "r"(zero ? 0 : 4) : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -951,59 +944,88 @@ acs_inplace_block_kernel(const int* __restrict__ metrics_in, const int* __restri
 // ROT of inplace.py _chainback_inplace_kernel, where state s's decision at
 // global step t sits at position rotr(s, (t + 1 + p0) mod (K-1))).
 //
-// What bounds it: T dependent steps a frame, each "position -> word -> bit ->
-// next position"; its bytes and operations are nothing.  So the design
-// shortens the chain and runs every frame's chain at once: a warp a frame,
-// eight adjacent frames a block (one 32-byte sector of every [t, w] row), the
-// blocks spread over all SMs.
+// What bounds it: the walk is T dependent steps a frame, each "position ->
+// word -> bit -> next position"; its bytes and operations are small.  So
+// each form shortens the chain and runs many chains at once.
 //
 //  * ROT walks in position space: going back a step replaces one bit of the
 //    position (bit jj, which moves up by one a step), so no rotation is left
 //    in the chain.
-//  * STAGED (K <= 9): all W words of a chunk of 32 steps, for the block's
-//    eight frames, are copied into shared memory by cp.async, two chunks in
-//    flight behind the one being walked (three buffers, one barrier a chunk).
-//    Lane 0 walks.  It loads all W words of a step, which needs no position
-//    and so runs ahead, and picks the word by a tree of selects; the step's
-//    chain is then selects, one funnel shift and a mask that make the
-//    decision 0 or 1, and one multiply-add that puts it at its place in the
-//    next position: no memory access is left in the chain, and the only
-//    bookkeeping a step is the mask of the bit to replace.
-//    Lane 0 stores each chunk's 32 outputs as one word in every form (in
-//    either form of the walk): the bits and bytes forms keep them in a
-//    scratch array, and the warp writes them out after the walk, so neither
-//    the step loop nor the chunk's path changes with the form.  (Handing each chunk to the
-//    other lanes as it was walked, by a shuffle or through shared memory,
-//    was built and measured on an H100: it put their stores into the warp's
-//    one instruction stream between chunks, 8-14 % slower at K=7.)
-//    (Resolving five steps a round from the staged words, as below, was
-//    built and measured on an H100: 0.52 ms against 0.39 ms at K=7, B=512,
-//    T=8198 -- a
-//    round's forty-odd dependent instructions cost more than five short
-//    steps -- so the staged form walks step by step.)
+//  * STAGED (K <= 9, W <= 8 words a step): a frame's time is walked as many
+//    short chains.  [0, t_real) is cut into n segments of L steps
+//    (ops/cuda/kernels.py walk_plan, from K, B and T alone: L a multiple of
+//    32; n such that B x n chains give each SM sub-partition of an H100 a
+//    warp; n = 1, the serial walk, where B alone does or the frame is short).
+//    A lane walks one (frame, segment): eight adjacent frames on adjacent
+//    lanes, so a warp's load of a step reads whole 32-byte sectors of the
+//    [t, w] rows, four segments a warp, and a block holds a group of eight
+//    frames with all their segments.
+//    Phase 1: segment k, [lo_k, hi_k), starts D steps above its top, at
+//    min(hi_k + D, t_real), from a guessed state: 0, or the frame's end state
+//    where it starts at t_real, so the top segment is exact.  It walks down
+//    to lo_k and keeps its position q_k as it passes hi_k and e_k at lo_k.
+//    A lane loads all W words of a step, which needs no position, in batches
+//    of 32/W steps held in registers, the next batch in flight while one is
+//    walked; the word is picked by a tree of selects, and the step's chain is
+//    selects, one funnel shift and a mask that make the decision 0 or 1, and
+//    one multiply-add that puts it at its place in the next position: no
+//    memory access is left in the chain.  Each chunk of 32 outputs is stored
+//    as one word in every form (a scratch for the bits and bytes forms, which
+//    the block's warps write out at the end, runs of 32 chunks a warp).
+//    Phase 2, exact: the walk below hi_k depends only on the position there
+//    (the ties were decided in the ACS), so segment k is right where q_k =
+//    e_{k+1}, the exact bottom of the segment above.  A warp a frame goes
+//    from the top down; where q_k is not e_{k+1} it walks segment k again
+//    from e_{k+1}, a chunk at a time (lane u loads step u of the chunk, the
+//    next chunk in flight; shuffles hand each step's words to every lane,
+//    which all walk alike), and stops at the first chunk word equal to the
+//    one already there: a chunk's outputs fix the position below it (its
+//    lowest K-1 decisions are the position's bits), so the rest of the
+//    segment, and e_k, are as they were; else the walk's bottom is the new
+//    e_k.  The outputs equal the serial walk's bit for bit, for any words.
+//    Worst case (every guess wrong, no re-walk meeting the old one) the warp
+//    walks the frame again below the top segment: about the serial walk.  A
+//    frame that walked any segment again adds their count to a device
+//    counter with one atomic (rewalks).
+//    What bounds it now (K=7, B=512, T=8198 on an H100: 0.024-0.037 ms by
+//    the form, from 0.22): not the chains (33 to 52 segments take the same
+//    time), but the loads, each of which reads four 128-byte lines (eight
+//    frames' words at four segments' steps), some 21K lines an SM, beside
+//    some 20 instructions a step on 2-3 warps a scheduler.  Four frames a
+//    block, on twice the SMs, was no faster: each line then carries half.
+//    (Before, a warp walked a frame from words staged in shared memory by
+//    cp.async, lane 0 alone: a chain of 8198 steps of some 53 cycles, 64 of
+//    the 132 SMs busy with 8 lanes each.)
+//    (Resolving five steps a round from the words, as below, was built and
+//    measured on an H100 for the one-lane walk: 0.52 ms against 0.39 ms at
+//    K=7, B=512, T=8198 -- a round's forty-odd dependent instructions cost
+//    more than five short steps -- so the staged form walks step by step.)
 //  * Not staged (K = 10..24; ROT only to 15): W is 16..2^18 words a step and
-//    does not stage.
+//    does not stage.  A warp walks a frame, eight frames a block.
 //    The position d steps back has only 2^d candidates (its unknown bits are
 //    the d decisions between).  Lane L, with L + 1 = 1 k_0 k_1 .. k_{d-1} in
 //    binary, fetches the word of the candidate that the decisions k_0.. lead
 //    to and extracts its bit; one ballot hands all 31 bits to every lane, and
 //    five steps resolve in registers (the child of node L on decision k is
-//    node 2L + 1 + k): one round trip to device memory for five steps.
+//    node 2L + 1 + k): one round trip to device memory for five steps.  The
+//    same segments would serve it (4-8 % of a K=15 call is its walk).
 //
 // Element (t, w, b) of dec is at t*st + w*sw + b*sb (64-bit strides), so a
 // batch-major [B, T, W] or time-major [T, B, W] tensor walks where it lies:
 // at K=24 a frame holds 2^18 words a step, and a copy into [Tp, W, B] would
 // cost more than the walk.
 //
-// Considered and not built: walking every 32-step segment from all S entry
-// states in parallel and stitching the segments.  It is exact, but multiplies
-// the operations by S: 268 M state-steps at K=7, B=512, T=8198, which is 0.19
-// ms at the card's full int32 rate -- no better than a chain of 8198 steps of
-// about 45 cycles (0.19 ms) and hopeless at K=15.
+// Rejected: walking every 32-step segment from all S entry states in
+// parallel and stitching the segments.  It is exact, but multiplies the
+// operations by S: 268 M state-steps at K=7, B=512, T=8198, which is 0.19 ms
+// at the card's full int32 rate, and hopeless at K=15.  The segments above
+// walk one guessed state each, so their operations grow only by (L + D) / L.
 // ---------------------------------------------------------------------------
-constexpr int kCbFrames = 8;  // frames (warps) a block
-constexpr int kCbBufs = 3;    // chunk buffers of the staged form
-constexpr int kCbChunk = 32;  // steps a staged chunk: one word of output bits
+constexpr int kCbFrames = 8;  // frames a block (the not-staged form: a warp each)
+constexpr int kCbChunk = 32;  // steps a chunk: one word of output bits
+constexpr int kSegFrames = 8;  // frames a block of the staged form: a 32-byte sector of a row
+constexpr int kSegMax = 64;    // segments a frame at most (walk_plan's WALK_MAX_SEGMENTS)
+constexpr int kSegThreads = kSegFrames * kSegMax;  // threads a block of the staged form at most
 constexpr int kCbDepth = 5;   // steps a round
 
 __device__ __forceinline__ int rotr_bits(int x, int r, int nbits, int mask) {
@@ -1064,6 +1086,11 @@ struct CbArgs {
   long long ostride;
   int* scratch;  // bits and bytes forms: [ceil(t_real / 32), B] int32 for the walk's words
   int lo, hi, K, B, t_real, nw, p0;
+  // The staged form's plan (kernels.walk_plan): nseg segments of seglen
+  // steps a frame, each started overlap steps above its top; and where it
+  // adds the segments walked again (null: not counted).
+  int nseg, seglen, overlap;
+  unsigned long long* rewalks;
 };
 
 // The end state of frame b; the whole warp calls it (the argmin is a warp
@@ -1140,18 +1167,257 @@ __device__ __forceinline__ void cb_write_out(const CbWriter& wr, const int* word
   }
 }
 
+// A frame's walks in the staged form (K <= 9): its words (step t, word i at
+// dec[t * st + i * sw], read as zeros from step zf on) and its chunk words
+// (chunk c, the outputs of steps 32c .. 32c + 31, at words[c * B]).
+template <bool ROT, int WT>
+struct SegWalk {
+  static constexpr int U = kCbChunk / WT;  // steps a batch of loads: 32 words a lane
+  const int* dec;
+  long long st, sw;
+  int zf, K, p0, B;
+  int* words;
+
+  // The position of `state` at step boundary t (the walk reads step t - 1
+  // next).
+  __device__ __forceinline__ int position(int state, int t) const {
+    const int nrot = K - 1, c = ROT ? (t + p0) % nrot : 0;
+    return c ? rotr_bits(state, c, nrot, (1 << nrot) - 1) : state;
+  }
+
+  // The words of steps t0 .. t0 + U - 1 (v[u]: step t0 + u); those of the
+  // steps from `lim` on are zero (the start step) or never walked.
+  // (The addresses advance by a stride a word: precomputed offsets of the
+  // 32 loads would hold 64 registers.)
+  __device__ __forceinline__ void load(unsigned (&v)[U][WT], int t0, int lim) const {
+    const int* p = dec + t0 * st;
+    const bool all = t0 + U <= lim;
+#pragma unroll
+    for (int u = 0; u < U; ++u, p += st) {
+      const int* q = p;
+#pragma unroll
+      for (int i = 0; i < WT; ++i, q += sw)
+        v[u][i] = all || t0 + u < lim ? (unsigned)__ldg(q) : 0u;
+    }
+  }
+
+  // One step back from `pos` on the step's words; returns the decision, 0 or
+  // 1.  ROT: bm is the mask of position bit jj, which the decision replaces;
+  // else the state bit K-2 at which it enters.
+  __device__ __forceinline__ static unsigned step(const unsigned (&wv)[WT], int& pos,
+                                                  unsigned& bm, unsigned mask) {
+    const unsigned word = pick_word<WT>(wv, pos >> 5);
+    // The decision as 0 or 1, then a multiply-add puts it in its place:
+    // fewer instructions than shifting it there and masking.
+    const unsigned k = __funnelshift_r(word, word, pos) & 1u;
+    if (ROT) {
+      pos = (pos & ~bm) + k * bm;
+      bm = (bm << 1) > mask ? 1u : bm << 1;
+    } else {
+      pos = (pos >> 1) + k * bm;
+    }
+    return k;
+  }
+
+  // The mask of the position bit that the decision of step t - 1 replaces
+  // (ROT), else of the state bit K-2 at which it enters.
+  __device__ __forceinline__ unsigned mask_at(int t) const {
+    if (!ROT) return 1u << (K - 2);
+    const int nrot = K - 1, c = (t + p0) % nrot;
+    return 1u << (c ? nrot - c : 0);
+  }
+
+  // Walks the batch v, steps t0 + U - 1 .. t0 (PART: only those below
+  // `from`), then settles step boundary t0: above out_hi nothing is kept (q
+  // takes the position at out_hi); below, the outputs go into acc, which is
+  // stored as chunk t0 / 32 at its bottom.
+  template <bool PART>
+  __device__ __forceinline__ void batch(const unsigned (&v)[U][WT], int t0, int from, int out_hi,
+                                        int& pos, unsigned& bm, unsigned& acc, int& q) const {
+    const unsigned mask = (1u << (K - 1)) - 1;
+    unsigned got = 0;
+#pragma unroll
+    for (int u = U - 1; u >= 0; --u)
+      if (!PART || t0 + u < from) got += step(v[u], pos, bm, mask) << u;
+    if (t0 >= out_hi) {
+      if (t0 == out_hi) q = pos;
+      return;
+    }
+    acc |= got << (t0 & (kCbChunk - 1));
+    if (t0 & (kCbChunk - 1)) return;
+    words[(size_t)(t0 / kCbChunk) * B] = (int)acc;
+    acc = 0;
+  }
+
+  // Walks from `pos`, the position at step boundary `from`, down to `to` (a
+  // multiple of 32 below from), leaving in pos the position at `to`.  The
+  // outputs of the steps below out_hi (from, or a multiple of 32) go to the
+  // chunk words; q takes the position at out_hi.  A batch of steps is walked
+  // while the next one's loads are in flight.
+  __device__ __forceinline__ void walk(int from, int to, int out_hi, int& pos, int& q) const {
+    unsigned bm = mask_at(from);
+    if (from == out_hi) q = pos;
+    const int lim = min(from, zf);
+    unsigned acc = 0, va[U][WT], vb[U][WT];
+    int t0 = (from - 1) / U * U;  // the first batch's bottom step
+    load(va, t0, lim);
+    for (bool part = t0 + U > from;; part = false) {
+      if (t0 > to) load(vb, t0 - U, lim);
+      if (part) batch<true>(va, t0, from, out_hi, pos, bm, acc, q);
+      else batch<false>(va, t0, from, out_hi, pos, bm, acc, q);
+      if ((t0 -= U) < to) return;
+      if (t0 > to) load(va, t0 - U, lim);
+      batch<false>(vb, t0, from, out_hi, pos, bm, acc, q);
+      if ((t0 -= U) < to) return;
+    }
+  }
+
+  // A warp walks steps [lo, hi) (multiples of 32) again from `pos` at hi,
+  // every lane alike: lane u loads step 32c + u of chunk c, the next chunk's
+  // loads in flight while one is walked, and a step's words reach every lane
+  // by shuffles.  Chunk by chunk from the top, it stops at the first chunk
+  // word equal to the one there and returns true (it has met the walk that
+  // wrote it, which goes on as it did); else it leaves in pos the position
+  // at lo.  The whole warp calls it.
+  __device__ __forceinline__ bool rewalk(int hi, int lo, int& pos, int lane) const {
+    const unsigned mask = (1u << (K - 1)) - 1;
+    unsigned bm = mask_at(hi), cur[WT], nxt[WT];
+    auto fetch = [&](unsigned (&v)[WT], int c) {
+      const int t = c * kCbChunk + lane;
+      const int* p = dec + t * st;
+#pragma unroll
+      for (int i = 0; i < WT; ++i, p += sw) v[i] = t < zf ? (unsigned)__ldg(p) : 0u;
+    };
+    int c = hi / kCbChunk - 1;
+    fetch(cur, c);
+    for (;;) {
+      if (c > lo / kCbChunk) fetch(nxt, c - 1);
+      unsigned acc = 0;
+#pragma unroll
+      for (int u = kCbChunk - 1; u >= 0; --u) {
+        unsigned wv[WT];
+#pragma unroll
+        for (int i = 0; i < WT; ++i) wv[i] = __shfl_sync(kFull, cur[i], u);
+        acc |= step(wv, pos, bm, mask) << u;
+      }
+      int* const w = words + (size_t)c * B;
+      if (__shfl_sync(kFull, lane == 0 ? (unsigned)*w : 0u, 0) == acc) return true;
+      if (lane == 0) *w = (int)acc;
+      if (--c < lo / kCbChunk) return false;
+#pragma unroll
+      for (int i = 0; i < WT; ++i) cur[i] = nxt[i];
+    }
+  }
+};
+
+// The staged form (K <= 9), in segments (the note above): a block is a group
+// of kSegFrames frames; lane (f, k) = threadIdx.x % kSegFrames, / kSegFrames
+// walks segment k of frame f.
+template <bool ROT, int WT>
+__device__ __forceinline__ void chainback_segments(const CbArgs& a) {
+  __shared__ int end_pos[kSegFrames];         // each frame's end state
+  __shared__ int seg_q[kSegMax][kSegFrames];  // each segment's position at its top step
+  __shared__ int seg_e[kSegMax][kSegFrames];  // and at its bottom step
+  const int B = a.B, t_real = a.t_real, n = a.nseg, L = a.seglen;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int f = threadIdx.x % kSegFrames, k = threadIdx.x / kSegFrames;
+  const int b0 = blockIdx.x * kSegFrames;
+  // The chunk words: the words form's output, or the bits and bytes forms'
+  // scratch, [ceil(t_real / 32), B].
+  int* const words = a.out_kind == kOutWords ? reinterpret_cast<int*>(a.out) : a.scratch;
+  // Frame b's walks.
+  auto walker = [&](int b) {
+    return SegWalk<ROT, WT>{a.dec + b * a.sb, a.st, a.sw,
+                            a.start != nullptr ? a.start[b] : t_real, a.K, a.p0, B, words + b};
+  };
+  // The end states, a warp a frame (the argmin is a warp reduction).  Where a
+  // frame's start step lies below t_real, its walk is that of its words
+  // zeroed from there on, from state 0 at t_real (the zero words keep it at
+  // state 0 down to the start step).  The end state is taken through a call:
+  // the argmin's code inline cost the one-lane walk's step loop some 5 % at
+  // K=7 on an H100.
+  for (int ff = warp; ff < kSegFrames; ff += nwarps) {
+    const int bf = min(b0 + ff, B - 1);
+    const bool zeroed = a.start != nullptr && a.start[bf] < t_real;
+    const int s = zeroed ? 0 : cb_end_state_call(a, bf, lane);
+    if (lane == 0) end_pos[ff] = s & ((1 << (a.K - 1)) - 1);
+  }
+  __syncthreads();
+
+  // Phase 1: every segment from its guess.
+  if (b0 + f < B && k < n) {
+    const SegWalk<ROT, WT> w = walker(b0 + f);
+    const int lo = k * L, hi = min(lo + L, t_real);
+    const int from = k == n - 1 ? t_real : min(hi + a.overlap, t_real);
+    int e = w.position(from == t_real ? end_pos[f] : 0, from), q;
+    w.walk(from, lo, hi, e, q);
+    seg_q[k][f] = q;
+    seg_e[k][f] = e;
+    if (k == 0 && a.out_kind == kOutWords)
+      for (int c = (t_real + kCbChunk - 1) / kCbChunk; c < a.nw; ++c) w.words[(size_t)c * B] = 0;
+  }
+  __syncthreads();
+  // Phase 2, a warp a frame: from the top down, each segment whose guess met
+  // another position at its top than the bottom of the segment above is
+  // walked again from there.
+  for (int ff = warp; ff < kSegFrames; ff += nwarps) {
+    if (b0 + ff >= B) continue;
+    const SegWalk<ROT, WT> w = walker(b0 + ff);
+    int entry = seg_e[n - 1][ff], count = 0;
+    for (int kk = n - 2; kk >= 0; --kk) {
+      if (seg_q[kk][ff] != entry) {
+        int pos = entry;
+        ++count;
+        if (!w.rewalk((kk + 1) * L, kk * L, pos, lane)) {  // not met: a new bottom
+          entry = pos;
+          continue;
+        }
+      }
+      entry = seg_e[kk][ff];
+    }
+    if (lane == 0 && count && a.rewalks != nullptr)
+      atomicAdd(a.rewalks, (unsigned long long)count);
+  }
+  if (a.out_kind == kOutWords) return;
+  __syncthreads();
+  // The bits and bytes forms, from the chunk words: the block's warps share
+  // out runs of 32 chunks of its frames.  A run's words are loaded a chunk a
+  // lane; bits: the warp writes a chunk's 32 bytes at a time, eight chunks
+  // in flight; bytes: each lane the bytes that start in its chunk.
+  const int nchunks = (t_real + kCbChunk - 1) / kCbChunk, runs = (nchunks + 31) / 32;
+  for (int item = warp; item < kSegFrames * runs; item += nwarps) {
+    const int bf = b0 + item % kSegFrames, c0 = item / kSegFrames * 32, ch = c0 + lane;
+    if (bf >= B) continue;
+    const CbWriter wr{static_cast<unsigned char*>(a.out) + (size_t)bf * a.ostride, a.out_kind,
+                      a.lo, a.hi};
+    const int* col = words + bf;
+    const unsigned mine = ch < nchunks ? (unsigned)col[(size_t)ch * B] : 0u;
+    if (a.out_kind == kOutBits) {
+#pragma unroll 8
+      for (int j = 0; j < 32; ++j) {
+        const unsigned acc = __shfl_sync(kFull, mine, j);
+        if (c0 + j < nchunks) wr.emit(c0 + j, acc, 0u, lane, 32);
+      }
+    } else if (ch < nchunks) {
+      wr.emit(ch, mine, ch + 1 < nchunks ? (unsigned)col[(size_t)(ch + 1) * B] : 0u, 0, 1);
+    }
+  }
+}
+
 // WT: the words a step (1, 2, 4, 8) of the staged form; 0: not staged.
 template <bool ROT, int WT>
-__global__ void __launch_bounds__(kCbFrames * 32)
+__global__ void __launch_bounds__(WT > 0 ? kSegThreads : kCbFrames * 32)
 chainback_kernel(const CbArgs a) {
-  extern __shared__ unsigned stage_cb[];
-  constexpr bool STAGED = WT > 0;
+  if constexpr (WT > 0) {
+    chainback_segments<ROT, WT>(a);
+    return;
+  }
   const int* __restrict__ dec = a.dec;
   const long long st = a.st, sw = a.sw, sb = a.sb;
   const int K = a.K, B = a.B, t_real = a.t_real, p0 = a.p0;
   int* const bits = reinterpret_cast<int*>(a.out);  // the words form's output
   const bool words_out = a.out_kind == kOutWords;
-  const int nrot = K - 1, S = 1 << nrot, mask = S - 1, W = STAGED ? WT : S >> 5;
+  const int nrot = K - 1, S = 1 << nrot, mask = S - 1;
   const int lane = threadIdx.x & 31, f = threadIdx.x >> 5;
   const int b0 = blockIdx.x * kCbFrames, b = b0 + f;
   const bool valid = b < B;  // whole warps
@@ -1160,97 +1426,9 @@ chainback_kernel(const CbArgs a) {
   // zeroed from there on, from state 0 at t_real (the zero words keep it at
   // state 0 down to the start step).
   const bool zeroed = a.start != nullptr && a.start[bl] < t_real;
-  // The staged walk takes the end state through a call: the argmin's code
-  // inline in it cost the step loop some 5 % at K=7 on an H100.
-  const int state =
-      (zeroed ? 0 : STAGED ? cb_end_state_call(a, bl, lane) : cb_end_state(a, bl, lane)) & mask;
+  const int state = (zeroed ? 0 : cb_end_state(a, bl, lane)) & mask;
   const CbWriter wr{static_cast<unsigned char*>(a.out) + (size_t)bl * a.ostride, a.out_kind, a.lo,
                     a.hi};
-
-  if constexpr (STAGED) {
-    const int c = ROT ? (t_real + p0) % nrot : 0;  // rotation of the last step's decisions
-    int pos = c ? rotr_bits(state, c, nrot, mask) : state;
-    const int jj = c ? nrot - c : 0;  // ROT: the position bit that the next decision replaces
-    // Lane 0 stores a chunk's 32 outputs as one word: into the words form's
-    // output, or for the bits and bytes forms into a scratch [nchunks, B]
-    // that the warp writes out after the walk.
-    int* __restrict__ chunk_words = words_out ? bits : a.scratch;
-    if (valid && lane == 0 && words_out)
-      for (int w = (t_real + 31) >> 5; w < a.nw; ++w) chunk_words[(size_t)w * B + b] = 0;
-    const int FS = kCbChunk * W + 4;  // a frame's stride: the copies' stores spread over banks
-    const int nchunks = (t_real + kCbChunk - 1) / kCbChunk;
-    // This thread's part of each chunk's copy, the same in every chunk: word
-    // w of frame ff at steps u0, u0 + 32/W, .. (W copies; blockDim.x is
-    // kCbFrames * 32), read as zeros from the frame's start step on.  The
-    // walking lane copies too, so the fewer instructions a copy, the shorter
-    // its path to the walk.
-    const int ff = threadIdx.x & (kCbFrames - 1), rw0 = threadIdx.x >> 3;
-    const int u0 = rw0 / W, fb = min(b0 + ff, B - 1);
-    const int* src = dec + (rw0 % W) * sw + fb * sb;
-    const int zero_from = a.start != nullptr ? a.start[fb] : t_real;
-    auto copy = [&](int seq) {  // chunk nchunks-1-seq into buffer seq % kCbBufs
-      if (seq < nchunks) {
-        const int t_lo = (nchunks - 1 - seq) * kCbChunk + u0;
-        unsigned* dst = stage_cb + (size_t)(seq % kCbBufs) * kCbFrames * FS + ff * FS + rw0;
-#pragma unroll
-        for (int k = 0; k < (STAGED ? WT : 1); ++k) {
-          const int tt = min(t_lo + k * (kCbChunk / W), t_real - 1);
-          cp_async4_or_zero(dst + kCbChunk * k, src + tt * st, tt >= zero_from);
-        }
-      }
-      cp_async_commit();
-    };
-    // ROT: the mask of position bit jj, which the step's decision replaces;
-    // else the state bit K-2 at which it enters.
-    unsigned bm = 1u << (ROT ? jj : K - 2);
-    copy(0);
-    copy(1);
-    for (int seq = 0; seq < nchunks; ++seq) {
-      cp_async_wait<1>();
-      __syncthreads();  // chunk seq has landed; every walk of chunk seq-1 is over
-      copy(seq + 2);
-      if (valid && lane == 0) {
-        const int chunk = nchunks - 1 - seq, t_lo = chunk * kCbChunk;
-        const int last = min(kCbChunk - 1, t_real - 1 - t_lo);
-        const unsigned* st =
-            stage_cb + (size_t)(seq % kCbBufs) * kCbFrames * FS + f * FS + last * W;
-        unsigned acc = 0, ubit = 1u << last;
-#pragma unroll 16
-        for (int u = last; u >= 0; --u, st -= W, ubit >>= 1) {
-          // All W words of the step, whichever the walk will want: the loads
-          // do not depend on the position, so they run ahead of the chain.
-          unsigned wv[STAGED ? WT : 1];
-          if constexpr (WT == 2) {
-            const uint2 v = *reinterpret_cast<const uint2*>(st);
-            wv[0] = v.x, wv[1] = v.y;
-          } else if constexpr (WT >= 4) {
-#pragma unroll
-            for (int i = 0; i < WT; i += 4) {
-              const uint4 v = *reinterpret_cast<const uint4*>(st + i);
-              wv[i] = v.x, wv[i + 1] = v.y, wv[i + 2] = v.z, wv[i + 3] = v.w;
-            }
-          } else {
-            wv[0] = st[0];
-          }
-          const unsigned word = pick_word<STAGED ? WT : 1>(wv, pos >> 5);
-          // The decision as 0 or 1, then a multiply-add puts it in its place:
-          // fewer instructions than shifting it there and masking.
-          const unsigned k = __funnelshift_r(word, word, pos) & 1u;
-          acc += k * ubit;
-          if (ROT) {
-            pos = (pos & ~bm) + k * bm;
-            bm = (bm << 1) > (unsigned)mask ? 1u : bm << 1;
-          } else {
-            pos = (pos >> 1) + k * bm;
-          }
-        }
-        chunk_words[(size_t)chunk * B + b] = (int)acc;
-      }
-    }
-    cp_async_wait<0>();
-    if (!words_out && valid) cb_write_out(wr, chunk_words + b, nchunks, B, lane);
-    return;
-  }
 
   // Not staged: the frame's walk starts at its start step, from state 0.
   const int tr = zeroed ? max(a.start[bl], 0) : t_real;
@@ -1499,17 +1677,22 @@ cudaError_t launch_chainback(const CbArgs& a, cudaStream_t stream) {
                                     a.lo < 0 || a.lo > a.hi || a.hi > a.t_real ||
                                     (a.out_kind == kOutBytes && (a.hi - a.lo) % 8))
     return cudaErrorInvalidValue;
-  const int blocks = (B + kCbFrames - 1) / kCbFrames, threads = kCbFrames * 32;
   const int W = K >= 7 ? 1 << (K - 6) : 1;
-  const int smem = 4 * kCbBufs * kCbFrames * (kCbChunk * W + 4);
+  const int fpb = W <= 8 ? kSegFrames : kCbFrames, blocks = (B + fpb - 1) / fpb;
+  // The staged form's plan: segments of whole chunks that cover [0, t_real).
+  if (W <= 8 && (a.nseg < 1 || a.nseg > kSegMax || a.seglen < kCbChunk || a.seglen % kCbChunk ||
+                 a.overlap < 0 || (long long)(a.nseg - 1) * a.seglen >= a.t_real ||
+                 (long long)a.nseg * a.seglen < a.t_real))
+    return cudaErrorInvalidValue;
+  const int threads = W <= 8 ? (kSegFrames * a.nseg + 31) / 32 * 32 : kCbFrames * 32;
   if (W == 1)
-    chainback_kernel<ROT, 1><<<blocks, threads, smem, stream>>>(a);
+    chainback_kernel<ROT, 1><<<blocks, threads, 0, stream>>>(a);
   else if (W == 2)
-    chainback_kernel<ROT, 2><<<blocks, threads, smem, stream>>>(a);
+    chainback_kernel<ROT, 2><<<blocks, threads, 0, stream>>>(a);
   else if (W == 4)
-    chainback_kernel<ROT, 4><<<blocks, threads, smem, stream>>>(a);
+    chainback_kernel<ROT, 4><<<blocks, threads, 0, stream>>>(a);
   else if (W == 8)
-    chainback_kernel<ROT, 8><<<blocks, threads, smem, stream>>>(a);
+    chainback_kernel<ROT, 8><<<blocks, threads, 0, stream>>>(a);
   else
     chainback_kernel<ROT, 0><<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
@@ -1573,16 +1756,19 @@ int viterbi_acs_inplace_smem(int K, int R, int comp) { return acs_inplace_smem(K
 
 // The tracebacks over dec, element (t, w, b) at t*st + w*sw + b*sb: state
 // order up to K=24, position order (rot) up to K=15, in the output and end
-// state forms of CbArgs (p0 < K-1: the phase of dec's first step).
+// state forms of CbArgs (p0 < K-1: the phase of dec's first step).  K <= 9:
+// the plan (nseg, seglen, overlap) of kernels.walk_plan, and an int64 count
+// of the segments walked again (or null); above K=9 these are not read.
 int viterbi_chainback(int rot, const void* dec, long long st, long long sw, long long sb,
                       int end_kind, int end_value, const void* end_ptr, long long end_stride,
                       const void* metrics, long long ms, long long mb, int mphase,
                       const void* start, int out_kind, void* out, long long ostride,
                       void* scratch, int lo, int hi, int K, int B, int t_real, int nw, int p0,
-                      void* stream) {
+                      int nseg, int seglen, int overlap, void* rewalks, void* stream) {
   const CbArgs a{(const int*)dec, st, sw, sb, end_kind, end_value, end_ptr, end_stride,
                  (const int*)metrics, ms, mb, mphase, (const int*)start, out_kind, out,
-                 ostride, (int*)scratch, lo, hi, K, B, t_real, nw, p0};
+                 ostride, (int*)scratch, lo, hi, K, B, t_real, nw, p0, nseg, seglen, overlap,
+                 (unsigned long long*)rewalks};
   return (int)(rot ? launch_chainback<true>(a, (cudaStream_t)stream)
                    : launch_chainback<false>(a, (cudaStream_t)stream));
 }

@@ -28,7 +28,7 @@ import torch
 
 from ...utils.spans import span
 
-__all__ = ["LAUNCHES", "FORM_LAUNCHES", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
+__all__ = ["LAUNCHES", "FORM_LAUNCHES", "WALK_SEGMENTS", "reset_launch_counts", "library", "library_paths", "build_seconds", "launch",
            "Bound", "check_cuda_int32"]
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
@@ -65,6 +65,10 @@ LAUNCHES: dict[str, int] = {
 # tally beside the counters, which reset_launch_counts leaves alone.
 FORM_LAUNCHES: dict[str, int] = {}
 
+# The staged walk's segments launched (B x n a launch, from kernels.walk_plan);
+# kernels.rewalk_stats reads it beside the kernel's count of those walked again.
+WALK_SEGMENTS: dict[str, int] = {"launched": 0}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -83,7 +87,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _P),
     "viterbi_acs_inplace_smem": (_I, _I, _I),
     "viterbi_chainback": (_I, _P, _L, _L, _L, _I, _I, _P, _L, _P, _L, _L, _I, _P, _I, _P, _L,
-                          _P, _I, _I, _I, _I, _I, _I, _I, _P),
+                          _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large2_chip": (_P, _P, _PI, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -25,7 +25,11 @@ Pallas layout's packed words, a byte a step for a range of steps, or data
 bytes MSB-first -- and takes its end state from an int, a tensor, or the
 argmin of the frame's metrics; a frame may start its walk from state 0 at a
 step of its own.  So a decoder's traceback, a stream's release and a time
-block's walk are one launch each (``chainback_tb``'s docstring).
+block's walk are one launch each (``chainback_tb``'s docstring).  At K <= 9
+it walks a frame's time as ``walk_plan``'s segments, each from a guessed
+state above its top, and walks again the segments whose guess did not meet
+the segment above: the outputs are the serial walk's, bit for bit
+(``rewalk_stats`` counts how often a segment is walked again).
 """
 
 from __future__ import annotations
@@ -46,13 +50,16 @@ from .walk import _end_args
 
 __all__ = ["acs_update_tb", "acs_update_tb_ref", "chainback_tb", "chainback_tb_ref",
            "acs_smem_bytes", "complement_form", "warp_lane_table", "launch_acs_tb",
-           "acs_launch_args", "check_acs_inputs", "metrics_like", "argmin_states", "FORMS"]
+           "acs_launch_args", "check_acs_inputs", "metrics_like", "argmin_states", "FORMS",
+           "walk_plan", "rewalk_stats", "WALK_CHAINS", "WALK_MAX_SEGMENTS"]
 
 STAGE = 32     # symbol steps staged per shared-memory refill (kStage in the source)
 TB_WARPS = 2   # warps a block of the K <= 9 warp form (kTbWarpThreads / 32)
 TB_MAX_K = 24  # chainback_tb's largest trellis: 2^18 words a step
 FORMS = ("words", "bits", "bytes")  # the tracebacks' output forms (CbOut in the source)
 _END_ARGMIN = 3  # the end-state kind that takes the argmin of the metrics (CbEnd)
+WALK_CHAINS = 132 * 4 * 32  # a warp of chains on each of an H100's 528 SM sub-partitions
+WALK_MAX_SEGMENTS = 64      # a block holds 8 frames with all their segments: 512 threads (kSegMax)
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,16 +327,69 @@ def walk_ref(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
         words = torch.where(live[:, None, :], words, torch.zeros((), dtype=words.dtype, device=dev))
         end = torch.where(first < t_real, torch.zeros_like(end), end)
     ks, _ = chainback.walk(code, words.permute(2, 0, 1), end, rotated, p0)
-    if form == "words":
-        res = pack_bits_to_words(F.pad(ks, (0, 32 * -(-Tp // 32) - t_real))).T.contiguous()
-    else:
-        res = ks[:, lo:hi].to(torch.uint8)
-        if form == "bytes":
-            res = bits_to_bytes(res)
+    res = walk_outputs(ks, form, lo, hi, Tp)
     if out is None:
         return res
     out.copy_(res)
     return out
+
+
+def walk_outputs(ks: torch.Tensor, form: str, lo: int, hi: int, Tp: int) -> torch.Tensor:
+    """The walk outputs ``ks [B, t_real]`` (0 or 1) in the output form
+    ``form`` of a walk over ``Tp`` steps of words."""
+    if form == "words":
+        return pack_bits_to_words(F.pad(ks, (0, 32 * -(-Tp // 32) - ks.shape[1]))).T.contiguous()
+    res = ks[:, lo:hi].to(torch.uint8)
+    return bits_to_bytes(res) if form == "bytes" else res
+
+
+@functools.lru_cache(maxsize=1024)
+def walk_plan(K: int, B: int, T: int) -> tuple[int, int, int]:
+    """The staged walk's segments (K <= 9) for ``B`` frames of ``T`` steps:
+    ``(n, L, D)``, n segments of L steps (a multiple of 32; the last one
+    ends at T), each walked from a guessed state D steps above its top.
+
+    n is the least for which ``B * n`` chains reach ``WALK_CHAINS``, at
+    most ``WALK_MAX_SEGMENTS``; 1 (the serial walk, no overlap) where B
+    alone reaches it or ``T <= L + D``.  D, about ten constraint lengths
+    in whole chunks (64 steps at K=7), is where the survivors have merged
+    but for a small share of segments, which are walked again."""
+    D = 32 * -(-10 * (K - 1) // 32)
+    whole = 32 * -(-T // 32)
+    want = -(-WALK_CHAINS // B)
+    if want <= 1:
+        return 1, whole, D
+    L = max(32, (T - 1) // (want - 1) // 32 * 32)  # the longest L with ceil(T / L) >= want
+    if -(-T // L) > WALK_MAX_SEGMENTS:
+        L = 32 * -(-T // (32 * WALK_MAX_SEGMENTS))
+    if T <= L + D:
+        return 1, whole, D
+    return -(-T // L), L, D
+
+
+_REWALKS: dict[torch.device, torch.Tensor] = {}  # the kernel's count of segments walked again
+
+
+def _rewalk_counter(dev: torch.device) -> torch.Tensor | None:
+    """The device's int64 count of segments walked again, made (zero) at its
+    first walk; None while a CUDA graph is being captured before then (the
+    walk then counts nothing)."""
+    counter = _REWALKS.get(dev)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        counter = _REWALKS[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    return counter
+
+
+def rewalk_stats() -> dict[str, int]:
+    """``{"segments": n, "rewalked": m}``: the staged walk's segments
+    launched (``_build.WALK_SEGMENTS``, counted from each launch's plan) and
+    walked again (the kernel's count on every device) since the process
+    started.  Waits for the devices; tests and probes call it, never the
+    decoders."""
+    return {"segments": _build.WALK_SEGMENTS["launched"],
+            "rewalked": sum(int(c.item()) for c in _REWALKS.values())}
 
 
 def chainback_tb_ref(code: CodeSpec, dec_words: torch.Tensor, endstate, t_real: int,
@@ -382,6 +442,10 @@ def launch_chainback(counter: str, rot: bool, code: CodeSpec, dec_words: torch.T
     # bytes forms give it a scratch to keep them in.
     scratch = (torch.empty((-(-t_real // 32), B), dtype=torch.int32, device=dev)
                if form != "words" else None)
+    plan, rewalks = (1, 32, 0), None
+    if code.decision_words <= 8:  # the staged form, in segments
+        plan, rewalks = walk_plan(code.K, B, t_real), _rewalk_counter(dev)
+        _build.WALK_SEGMENTS["launched"] += B * plan[0]
     _build.launch(counter, "viterbi_chainback", dev, int(rot), dec_words.data_ptr(),
                   *dec_words.stride(), end_kind, end_value, end_ptr, end_stride,
                   None if metrics is None else metrics.data_ptr(),
@@ -389,7 +453,8 @@ def launch_chainback(counter: str, rot: bool, code: CodeSpec, dec_words: torch.T
                   metrics_phase % (code.K - 1), None if start is None else start.data_ptr(),
                   FORMS.index(form), out.data_ptr(), out.stride(0) if form != "words" else 0,
                   None if scratch is None else scratch.data_ptr(), lo, hi, code.K, B, t_real,
-                  shape[0] if form == "words" else 0, p0)
+                  shape[0] if form == "words" else 0, p0, *plan,
+                  None if rewalks is None else rewalks.data_ptr())
     key = f"{counter}:{form}" + (":argmin" if metrics is not None else "")
     _build.FORM_LAUNCHES[key] = _build.FORM_LAUNCHES.get(key, 0) + 1
     return out

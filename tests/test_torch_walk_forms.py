@@ -296,6 +296,55 @@ def test_cuda_forms_match_plain(case, rotated, cuda_device):
     assert (big[:, :20] == 7).all() and (big[:, 20 + t_real - 5:] == 7).all()
 
 
+SEGMENT_CASES = [  # K, B, T or frame bytes, noisy (3 dB words of the plain ACS)
+    (3, 130, 2000, False), (5, 9, 700, False), (7, 512, 8198, False), (9, 130, 4104, False),
+    (7, 64, 1024, True), (9, 64, 512, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEGMENT_CASES,
+                         ids=lambda c: f"K{c[0]}B{c[1]}" + ("noisy" if c[3] else f"T{c[2]}"))
+@pytest.mark.parametrize("rotated", [False, True], ids=["tb", "inplace"])
+def test_cuda_segments_match_plain(case, rotated, cuda_device):
+    """The staged walk's segments (K <= 9) on the card against the serial
+    plain walk: every output and end-state form, a start step, a rotation
+    phase; random words, on which most guesses fail and segments are walked
+    again in runs, and 3 dB words, on which few are.  ``rewalk_stats``: the
+    segments each launch planned, and those the kernel walked again, equal
+    to the plain replay's count (``test_torch_walk_segments.py``) and above
+    zero on random words."""
+    from test_torch_walk_segments import code_k, form_calls, noisy_words, random_words, \
+        replay_segments
+    K, Bn, T, noisy = case
+    pc = code_k(K)
+    p0 = (K + 3) % (K - 1) if rotated else 0
+    if noisy:
+        dec, _ = noisy_words(pc, Bn, T, rotated, seed=K)
+        p0, T = 0, dec.shape[0]
+    else:
+        dec = random_words(pc, T + 5, Bn, seed=K * 1000 + Bn)
+    n = pk.walk_plan(K, Bn, T)[0]
+    dev_dec = dec.to(cuda_device)
+    walk = (lambda *a, **kw: pip.chainback_inplace(*a[:4], p0, *a[4:], **kw)) if rotated else \
+        pk.chainback_tb
+    rewalked = 0
+    for end, form, kw in form_calls(pc, Bn, T, rotated, p0, seed=T):
+        want = pk.walk_ref(pc, dec, end, T, rotated, p0, form, **kw)
+        replayed, count = replay_segments(pc, dec, end, T, rotated, p0, form, **kw)
+        assert torch.equal(replayed, want)
+        on_card = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        before = pk.rewalk_stats()
+        got = walk(pc, dev_dec, end.to(cuda_device) if isinstance(end, torch.Tensor) else end, T,
+                   form, **on_card)
+        after = pk.rewalk_stats()
+        assert torch.equal(got.cpu(), want), (form, sorted(kw))
+        assert after["segments"] - before["segments"] == Bn * n
+        assert after["rewalked"] - before["rewalked"] == count, (form, sorted(kw))
+        rewalked += count
+    assert noisy or rewalked > 0
+
+
 @pytest.mark.cuda
 def test_cuda_refuses_a_bad_out(cuda_device):
     pc = _code(7, 2)
