@@ -16,8 +16,8 @@ def config(name: str, **changes) -> dict:
     return cfg
 
 
-def frames(batch=4, pool=2) -> dict:
-    return {"entry": "frames", "batch": batch, "pool": pool, "inflight": 2}
+def frames(batch=4, pool=2, inflight=2) -> dict:
+    return {"entry": "frames", "batch": batch, "pool": pool, "inflight": inflight}
 
 
 def stream(batch=4, push_steps=64, pool=2) -> dict:

@@ -114,7 +114,7 @@ def test_run_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     done = subprocess.run([sys.executable, "perfbench/run.py", "--workload",
-                           "viterbi27.frames_b512", "--seed", "1", "--seconds", "1"],
+                           "viterbi27.frames_b4096", "--seed", "1", "--seconds", "1"],
                           cwd=small.HERE.parent, capture_output=True, text=True, timeout=300)
     assert done.returncode != 0 and done.stdout == ""
 
@@ -123,6 +123,6 @@ def test_run_refuses_without_a_card():
 def test_cell_on_card(cuda_device):
     """A short window of the first cell on the card comes out correct."""
     from perfbench import spec
-    s = spec.load("viterbi27.frames_b512")
+    s = spec.load("viterbi27.frames_b4096")
     res = cell.run(s, 5, 1.0, False, cuda_device, time.perf_counter(), log=lambda *a: None)
     assert res["correct"], res["checks"]
