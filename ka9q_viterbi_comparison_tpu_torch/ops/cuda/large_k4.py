@@ -52,6 +52,7 @@ from __future__ import annotations
 import torch
 
 from ...configs import CodeSpec, NumericSpec
+from ...utils.spans import span
 from .. import radix_planes as rp
 from . import _build, large_k
 from .kernels import _state_order_words
@@ -244,8 +245,9 @@ def acs_update_large4(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tenso
     if T < 1:
         raise ValueError("acs_update_large4: no trellis steps")
     _, rn = renorm_schedule4(code, numeric, T, metric_dtype)
-    words, strides = words_buffer(B, T, code.decision_words, time_major, metrics.device)
-    offset = torch.zeros((B,), dtype=torch.int32, device=metrics.device)
+    with span("ka9q.alloc"):  # a call's words (730 MB at ICE B=8 T=87) and offset
+        words, strides = words_buffer(B, T, code.decision_words, time_major, metrics.device)
+        offset = torch.zeros((B,), dtype=torch.int32, device=metrics.device)
     m = metrics
     if T % 4 in (1, 2) and T > 4 and rn == 0 and not chip_blocks(code, B):
         # The remainder's entry shift is the frame minimum after the quads,

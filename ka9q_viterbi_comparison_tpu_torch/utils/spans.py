@@ -17,7 +17,8 @@ The port's spans, all named ``ka9q.*``:
   the retained rows to the front of the window (inside ``ka9q.push``, or in
   ``flush``).
 * ``ka9q.alloc``: the growth of the decoder's word buffer or of the
-  stream's window.
+  stream's window, and the words and offset that the depth-4 large-K
+  update (``ops.cuda.large_k4.acs_update_large4``) makes in every call.
 * ``ka9q.launch.<counter>``: one call of a kernel launcher, named by its key
   in ``ops.cuda._build.LAUNCHES``, so the route a call took is in the trace.
 """

@@ -42,9 +42,9 @@ def _symbols(code, steps: int, seed: int = 0) -> torch.Tensor:
     return torch.randint(-3, 4, (B, steps * code.R), generator=g, dtype=torch.int32)
 
 
-def _frames(code):
+def _frames(code, device="cpu"):
     """reset -> update -> chainback of one batch of frames; the bytes."""
-    dec = P.ViterbiDecoder(code, P.soft8_spec(code.R), batch=B, backend="cuda", device="cpu")
+    dec = P.ViterbiDecoder(code, P.soft8_spec(code.R), batch=B, backend="cuda", device=device)
     dec.reset()
     dec.update(_symbols(code, 64 + code.K - 1))
     return dec.chainback(64)
@@ -86,6 +86,26 @@ def test_frame_decoder_phases_are_spans(code, tmp_path):
     assert ("ka9q.alloc" in names) == (code.K <= 9)
     if code.K <= 9:
         assert names.index("ka9q.update") < names.index("ka9q.alloc")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the depth-4 large-K launcher has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_large_k_words_and_offset_are_an_alloc_span(cuda_device, tmp_path):
+    """At ICE the depth-4 route makes a call's words and offset inside
+    ``ka9q.alloc``, within the update and before its launcher's span."""
+    want = _frames(P.VITERBI224, cuda_device)
+    with _profiler() as prof:
+        got = _frames(P.VITERBI224, cuda_device)
+    assert torch.equal(got, want)
+    assert _annotations(prof, tmp_path) == [
+        "ka9q.reset", "ka9q.reset", "ka9q.update", "ka9q.alloc",
+        "ka9q.launch.acs_update_large4", "ka9q.chainback", "ka9q.launch.chainback_tb"]
 
 
 def test_stream_push_is_a_span_around_its_walk_and_retain(tmp_path):
