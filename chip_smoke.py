@@ -631,10 +631,12 @@ def phase_kernels_large(tag, rng, errs):
           f"{(T // 2) // rn if rn else 0} times a frame")
     _, sym = noisy_symbols(soft8, B_CAS_LARGE, rng, 3, cas, CAS_BYTES)
     m0 = metrics0(cas, soft8, B_CAS_LARGE, state_major=False)
+    n4 = _build.LAUNCHES["acs_update_large2_quads"]
     e, (m64, words, off64) = compare_large(
         f"acs_update_large2 cassini soft8 B={B_CAS_LARGE} T={T}", large_k2.acs_update_large2,
         large_k2.acs_update_large2_ref, (cas, soft8, m0, sym), keep=("acs_update_large2", None))
     note("acs_update_large2", e)
+    four_steps("acs_update_large2", n4)
     # B=1 and B=3 of the same frames (a cluster a frame, so the frames of a
     # call are independent; four blocks a frame where B=64 takes two): equal
     # to the B=64 call, which equals the plain version.
@@ -679,9 +681,11 @@ def phase_kernels_large(tag, rng, errs):
     note("acs_update_large2", e)
     # acs_update_large on chip: an odd-length block (half a frame: 1031 steps).
     half = T // 2
+    n4 = _build.LAUNCHES["acs_update_large_quads"]
     note("acs_update_large", compare_plan(f"cassini soft8 B={B_CAS_LARGE} T={half}", cas, soft8,
                                           m0, sym[:, :half].contiguous(),
                                           keep=("acs_update_large", None)))
+    four_steps("acs_update_large", n4)
     # ICE K=24 (2^23 states) at B=2, T=7: three pairs and the odd tail.
     ice, s8 = VITERBI224, soft8_spec(2)
     sym_ice = torch.from_numpy(rng.integers(-3, 4, size=(2, 7, 2)).astype(np.int32)).cuda()
@@ -734,16 +738,26 @@ def phase_kernels_large(tag, rng, errs):
     print(f"[{tag}] large-K kernels and K=15 shapes vs plain versions: all bit-identical")
 
 
+def four_steps(counter, before):
+    """Fail unless the call since ``before`` (the count of ``counter +
+    "_quads"``) ran one launch four steps a cluster barrier."""
+    n = _build.LAUNCHES[counter + "_quads"] - before
+    print(f"{counter}: {n} launch of the on-chip kernel four steps a cluster barrier")
+    if n != 1:
+        raise SystemExit(f"FAIL {counter}: {n} four-step launches, not 1")
+
+
 def compare_plan(label, code, numeric, m, sym, keep=None):
     """``acs_update_large`` against its plain version, with one launcher
-    call (counted as ``acs_update_large``) a segment of its plan.  Returns
-    the max_abs_err."""
+    call (counted as ``acs_update_large``, or ``acs_update_large_quads``
+    four steps a cluster barrier) a segment of its plan.  Returns the
+    max_abs_err."""
     p = large_k.plan(code, m.shape[0], sym.shape[1])
-    n = _build.LAUNCHES["acs_update_large"]
+    n = by_kernel(_build.LAUNCHES)["acs_update_large"]
     e, _ = compare_large(f"acs_update_large {label} ({p.form}: {p.launches} kernel launches "
                          f"planned)", large_k.acs_update_large, large_k.acs_update_large_ref,
                          (code, numeric, m, sym), keep=keep)
-    calls = _build.LAUNCHES["acs_update_large"] - n
+    calls = by_kernel(_build.LAUNCHES)["acs_update_large"] - n
     if calls != len(p.segments):
         raise SystemExit(f"FAIL acs_update_large {label}: {calls} launcher calls, planned "
                          f"{len(p.segments)}")
@@ -1610,6 +1624,17 @@ def drive_phase_fns(tag, rng):
     return launches
 
 
+def by_kernel(launches: dict[str, int]) -> dict[str, int]:
+    """Launches by counter, the on-chip kernel's four-step launches
+    (``<counter>_quads``, ``large_k2.chip_depth``) added to their
+    counter's."""
+    out = {k: v for k, v in launches.items() if not k.endswith("_quads")}
+    for k, v in launches.items():
+        if k.endswith("_quads"):
+            out[k[:-len("_quads")]] += v
+    return out
+
+
 def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
     """One decode path through the user's entry point: the launch counts are
     zeroed just before it and read just after.  ``runs``: (batch, step
@@ -1637,7 +1662,7 @@ def drive_path(tag, label, code, numeric, n_bytes, runs, rng, kernels_of_path):
     launches = dict(_build.LAUNCHES)
     print(f"[{tag}] {label} path launches: {json.dumps(launches)}")
     for name in kernels_of_path:
-        if launches[name] == 0:
+        if by_kernel(launches)[name] == 0:
             raise SystemExit(f"FAIL: kernel {name} was not launched on the {label} path")
 
     for (B, blocks, (data, _), (noisy_data, noisy)), (decoded, pm, dec_noisy, pm_noisy) in zip(
@@ -2164,7 +2189,7 @@ def phase_decode(tag, rng, errs):
         paths.append(drive_stream(tag, rng, code, B, n, pushes, kernels_of_path))
     paths.append(drive_awgn(tag, rng, errs))
     paths.append(drive_parallel(tag, rng))
-    launches = {name: sum(p[name] for p in paths) for name in _build.LAUNCHES}
+    launches = by_kernel({name: sum(p[name] for p in paths) for name in _build.LAUNCHES})
     forms = {k: v - forms0.get(k, 0) for k, v in _build.FORM_LAUNCHES.items() if v > forms0.get(k, 0)}
     print(f"[{tag}] the tracebacks' launches by output form over the nine paths (timing inside "
           f"paths 7 and 9 included): {json.dumps(forms)}")

@@ -1,7 +1,8 @@
 // Shared by viterbi_large.cu and viterbi_large4.cu: the code description,
-// branch-penalty tables, the butterfly, the decision-word packing, and the
-// per-frame shift-to-zero renormalisation kernels of the state-blocked
-// large-K kernels.  Each source includes this file into its own anonymous
+// branch-penalty tables, the butterfly, the decision-word packing, the quad's
+// four radix-2 levels in a thread's registers, and the per-frame
+// shift-to-zero renormalisation kernels of the state-blocked large-K
+// kernels.  Each source includes this file into its own anonymous
 // namespace.
 
 #pragma once
@@ -180,6 +181,65 @@ __device__ __forceinline__ void pair_words(unsigned v1, unsigned v2, int lane, i
     for (int o = 1; o < 8; o <<= 1) z |= __shfl_xor_sync(0xffffffffu, z, o);
     if ((lane & 7) == 0) gt[4 * w + (lane >> 3)] = (int)z;
   }
+}
+
+// The quad (viterbi_large4.cu's octet kernel; the on-chip kernel's
+// four-step body in viterbi_large.cu): thread p (0 <= p < S/16) owns the
+// predecessors p + k S/16 (k < 16) and runs four steps on them in registers,
+// the finals 16p .. 16p+15.  What a level writes besides the metrics: words,
+// or the fields of viterbi_large4.cu's walk tables.
+enum Mode { kWords = 0, kF4 = 1, kF8 = 2 };
+
+// The parities of the uniform parts of a level's predecessor indices.
+struct Quad {
+  int par_k[8];     // parities of k, k < 8
+  int par_m[4][8];  // par_m[l][m]: parities of m * (S >> (4 - l)), group m of level l + 1
+};
+
+// Level L of the quad: `in` holds (16 >> (L-1)) groups of 2^(L-1) values at
+// index (m << (L-1)) | k; group m pairs with group m + (16 >> L).  qa: the
+// address of the level's table entry at the parities of the low predecessor
+// p << (L-1) XOR km[0].  Returns the level's decisions, bit j for output j =
+// (m << L) | (k << 1) | b.  Fields: pf_out = (pf_in[winner] << 1) | d.
+template <int L, int MODE, bool COMP>
+__device__ __forceinline__ unsigned quad_level(const int* in, int* out, const int* pf_in,
+                                               int* pf_out, saddr_t qa, int comp, const Code& c,
+                                               const Quad& qd) {
+  constexpr int G = 16 >> L, KP = 1 << (L - 1);
+  unsigned bits = 0;
+#pragma unroll
+  for (int m = G - 1; m >= 0; --m)
+#pragma unroll
+    for (int k = KP - 1; k >= 0; --k) {
+      const int lo = m * KP + k, hi = (m + G) * KP + k, o = (m * KP + k) * 2;
+      int diff[2];
+      bfly<COMP>(in[lo], in[hi], qa ^ ((qd.par_k[k] ^ qd.par_m[L - 1][m]) << 2), comp, c,
+                 out + o, diff);
+      bits = push_bit(push_bit(bits, diff[1]), diff[0]);
+      if (MODE != kWords) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int sel = diff[b] >> 31;  // all ones where the high predecessor survives
+          pf_out[o + b] = ((pf_in[lo] & ~sel) | (pf_in[hi] & sel)) * 2 - sel;
+        }
+      }
+    }
+  return bits;
+}
+
+// A trellis's Quad, on the host.
+Quad make_quad(const Code& c, int K, int R) {
+  Quad qd = {};
+  const int S = 1 << (K - 1);
+  auto par = [&](int s) {
+    int v = 0;
+    for (int r = 0; r < R; ++r) v |= (__builtin_popcount(s & c.mask[r]) & 1) << r;
+    return v;
+  };
+  for (int k = 0; k < 8; ++k) qd.par_k[k] = par(k);
+  for (int l = 0; l < 4; ++l)
+    for (int m = 0; m < (8 >> l); ++m) qd.par_m[l][m] = par(m * (S >> (4 - l)));
+  return qd;
 }
 
 // mn[b] = the minimum of frame b's S metrics, written (no prefilled row);

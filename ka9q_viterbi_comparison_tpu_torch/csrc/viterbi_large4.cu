@@ -106,45 +106,8 @@
 
 namespace {
 
-enum Mode { kWords = 0, kF4 = 1, kF8 = 2 };
 constexpr int kOctGroups = 32;   // octets a block (fewer below K=14)
 constexpr int kOctThreads = 16 * kOctGroups;  // 512
-
-struct Quad {
-  int par_k[8];     // parities of k, k < 8
-  int par_m[4][8];  // par_m[l][m]: parities of m * (S >> (4 - l)), group m of level l + 1
-};
-
-// Level L of the quad: `in` holds (16 >> (L-1)) groups of 2^(L-1) values at
-// index (m << (L-1)) | k; group m pairs with group m + (16 >> L).  qa: the
-// address of the level's table entry at the parities of the low predecessor
-// p << (L-1) XOR km[0].  Returns the level's decisions, bit j for output j =
-// (m << L) | (k << 1) | b.  Fields: pf_out = (pf_in[winner] << 1) | d.
-template <int L, int MODE, bool COMP>
-__device__ __forceinline__ unsigned quad_level(const int* in, int* out, const int* pf_in,
-                                               int* pf_out, saddr_t qa, int comp, const Code& c,
-                                               const Quad& qd) {
-  constexpr int G = 16 >> L, KP = 1 << (L - 1);
-  unsigned bits = 0;
-#pragma unroll
-  for (int m = G - 1; m >= 0; --m)
-#pragma unroll
-    for (int k = KP - 1; k >= 0; --k) {
-      const int lo = m * KP + k, hi = (m + G) * KP + k, o = (m * KP + k) * 2;
-      int diff[2];
-      bfly<COMP>(in[lo], in[hi], qa ^ ((qd.par_k[k] ^ qd.par_m[L - 1][m]) << 2), comp, c,
-                 out + o, diff);
-      bits = push_bit(push_bit(bits, diff[1]), diff[0]);
-      if (MODE != kWords) {
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int sel = diff[b] >> 31;  // all ones where the high predecessor survives
-          pf_out[o + b] = ((pf_in[lo] & ~sel) | (pf_in[hi] & sel)) * 2 - sel;
-        }
-      }
-    }
-  return bits;
-}
 
 // The block's minimum of every thread's v[0..15], atomicMin'd into *dst.
 // Holds a barrier: call it uniformly.
@@ -388,20 +351,6 @@ acs_large_octet_kernel(const int* __restrict__ m_in, int* __restrict__ m_out,
     store_finals<NL2>(v0, m_out + (size_t)b * S, p, S);
     if (mn_at == 2) block_min(v0, wmin, mn + b);
   }
-}
-
-Quad make_quad(const Code& c, int K, int R) {
-  Quad qd = {};
-  const int S = 1 << (K - 1);
-  auto par = [&](int s) {
-    int v = 0;
-    for (int r = 0; r < R; ++r) v |= (__builtin_popcount(s & c.mask[r]) & 1) << r;
-    return v;
-  };
-  for (int k = 0; k < 8; ++k) qd.par_k[k] = par(k);
-  for (int l = 0; l < 4; ++l)
-    for (int m = 0; m < (8 >> l); ++m) qd.par_m[l][m] = par(m * (S >> (4 - l)));
-  return qd;
 }
 
 // One launch of NS steps (3: a lone tri, 4: a lone quad, 7: a quad and a

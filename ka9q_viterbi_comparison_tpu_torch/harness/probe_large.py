@@ -9,8 +9,10 @@ libraries; with ``--sass FILE`` also their machine code, to ``FILE``).  Then
 holds the on-chip pair kernel and the octet kernel's three forms against
 their plain versions at the shapes it times, and times with CUDA events:
 ``acs_update_large2`` at Cassini soft8 (T = 2062) over batches 1-256; the
-on-chip pair kernel at one, two and four blocks a frame (each that fits) for
-r=1/6 codes at K=13-16 (Cassini: 15), B=8, 64 and 128; the octet forms at ICE
+on-chip kernel at one, two and four blocks a frame (each that fits) for
+r=1/6 codes at K=13-16 (Cassini: 15) and r=1/3 at K=17, B=1, 8, 64 and 128,
+where a frame spans a cluster at two and four steps a cluster barrier
+(``cluster_sizes``); the octet forms at ICE
 soft8 B=8 T=87 beside their metric-traffic floor, and the streaming pair at
 ICE.  With ``--trace DIR``, three ``_fields8`` calls at
 that shape run under ``harness.profiling.device_trace`` (a Chrome trace in
@@ -87,41 +89,70 @@ def res_usage(tag, sass):
                 subprocess.run([str(cuobjdump), "-sass", str(so)], stdout=fh, check=True)
 
 
+def barriers(T: int, depth: int) -> int:
+    """Cluster barriers of a ``T``-step on-chip call between its units: one
+    a pair (``depth`` 2) or a pass of four steps and a pair left over (4),
+    and one for the odd tail."""
+    pairs = T // 2
+    return (pairs if depth == 2 else pairs // 2 + pairs % 2) + T % 2
+
+
 def cluster_sizes(tag, rng) -> bool:
-    """The on-chip pair kernel at 1, 2 and 4 blocks a frame, each the
-    launcher takes (a block holds at most ``large_k2.CHIP_STATES`` states,
-    and no fewer quads than a pair has table entries), for r=1/6 codes at
-    K=13-16 (Cassini: 15), soft8, T = 2062, B = 8, 64 and 128; held against
-    the plain version at B=8.  Returns whether all were equal."""
+    """The on-chip kernel at 1, 2 and 4 blocks a frame, each the launcher
+    takes (a block holds at most ``large_k2.CHIP_STATES`` states, and no
+    fewer quads than a pair has table entries), for r=1/6 codes at K=13-16
+    (Cassini: 15) and an r=1/3 code at K=17, soft8, T = 2062, B = 1, 8, 64
+    and 128; where a frame spans a cluster, at two steps a cluster barrier
+    (the pair body) and four (the four-step body), in turns (2, 4, 4, 2),
+    with the time a barrier.  Held against the plain version at B=8 and
+    B=64; the launches each depth counted.  Returns whether all were
+    equal."""
     ok = True
     s8, T = soft8_spec(6), 2062
-    for K in (13, 14, 15, 16):
+    for K in (13, 14, 15, 16, 17):
+        R = 3 if K == 17 else 6
         code = VITERBI615 if K == 15 else CodeSpec(
-            f"k{K}r6", K, 6, tuple((1 << (K - 1)) | int(rng.integers(0, 1 << (K - 1))) | 1
-                                   for _ in range(6)))
-        _, rn = large_k2.renorm_schedule(code, s8, T)
-        for B in (8, 64, 128):
-            m, sym = inputs(code, s8, B, T, rng)
-            want = large_k2.acs_update_large2_ref(code, s8, m, sym) if B == 8 else None
+            f"k{K}r{R}", K, R, tuple((1 << (K - 1)) | int(rng.integers(0, 1 << (K - 1))) | 1
+                                     for _ in range(R)))
+        numeric = soft8_spec(R)
+        _, rn = large_k2.renorm_schedule(code, numeric, T)
+        for B in (1, 8, 64, 128):
+            if B == 1 and K < 14:
+                continue
+            m, sym = inputs(code, numeric, B, T, rng)
+            want = large_k2.acs_update_large2_ref(code, numeric, m, sym) if B in (8, 64) else None
             for cl in (1, 2, 4):
                 if not 2 << code.R <= code.num_states // cl // 4 <= large_k2.CHIP_STATES // 4:
                     continue
 
-                def call():
+                def call(depth):
                     words, strides = large_k2.words_buffer(B, T, code.decision_words, False,
                                                            m.device)
                     off = torch.zeros((B,), dtype=torch.int32, device=m.device)
-                    mo = large_k2.launch_chip(code, s8, m, sym, words, off, strides, 0, T, rn, cl)
+                    mo = large_k2.launch_chip(code, numeric, m, sym, words, off, strides, 0, T, rn,
+                                              cl, _depth=depth)
                     return mo, words, off
 
-                same = want is None or all(torch.equal(a, b) for a, b in zip(call(), want))
-                ok &= same
-                ms = timed_ms(call, 5)
+                depths = (2, 4) if cl >= 2 else (2,)
+                before = dict(_build.LAUNCHES)
+                same = {d: want is None or all(torch.equal(a, b) for a, b in zip(call(d), want))
+                        for d in depths}
+                counted = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+                ok &= all(same.values())
+                times = {d: [] for d in depths}
+                for d in (2, 4, 4, 2) if cl >= 2 else (2, 2):
+                    times[d].append(timed_ms(lambda: call(d), 5))
                 pick = " (chip_blocks)" if cl == large_k2.chip_blocks(code, B) else ""
-                print(f"[{tag}] on-chip pair K={K} r=1/6 soft8 B={B} T={T}, {cl} blocks a "
-                      f"frame{pick}: {ms:.4f} ms = {1e3 * ms / (T // 2):.3f} us a pair"
-                      + ("" if want is None else f" (equal to the plain version {same})"),
-                      flush=True)
+                for d in depths:
+                    ms = min(times[d])
+                    port = " (the port's)" if pick and d == large_k2.chip_depth(cl, False, T) else ""
+                    print(f"[{tag}] on-chip K={K} r=1/{R} soft8 B={B} T={T}, {cl} blocks a frame"
+                          f"{pick}, {d} steps a barrier{port}: {times[d][0]:.4f} / "
+                          f"{times[d][1]:.4f} ms = {1e3 * ms / (T // 2):.3f} us a pair, "
+                          f"{1e3 * ms / barriers(T, d):.3f} us a barrier"
+                          + ("" if want is None else f" (equal to the plain version {same[d]})"),
+                          flush=True)
+                print(f"[{tag}] launches counted: {counted}", flush=True)
             del m, sym, want
             torch.cuda.empty_cache()
     return ok

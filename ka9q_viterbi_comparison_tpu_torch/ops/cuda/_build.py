@@ -50,6 +50,9 @@ LAUNCHES: dict[str, int] = {
     "chainback_inplace": 0,
     "acs_update_large2": 0,
     "acs_update_large": 0,
+    # The on-chip kernel's launches four steps a cluster barrier (large_k2.chip_depth).
+    "acs_update_large2_quads": 0,
+    "acs_update_large_quads": 0,
     "acs_update_large4": 0,
     "acs_update_large4_fields": 0,
     "acs_update_large4_fields8": 0,
@@ -91,7 +94,7 @@ _SIGNATURES = {
     "viterbi_acs_large": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large2_chip": (_P, _P, _PI, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
+                                _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
     "viterbi_acs_large4": (_I, _P, _P, _PI, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P),
     "viterbi_plane_walk": (_P, _P, _P, _P, _L, _L, _P, _I, _L, _I, _P, _P, _I, _I, _I, _I, _I,

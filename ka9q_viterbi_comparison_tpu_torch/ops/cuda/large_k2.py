@@ -6,8 +6,10 @@ in ``csrc/viterbi_large.cu``; each step pair runs in a thread's registers.
 Where a frame's metrics fit on chip (``chip_blocks``: K <= 17) one launch of
 ``acs_pairs_chip_kernel`` runs the whole block, odd tail included, with each
 frame's metrics in the shared memory of a cluster of 1-4 blocks (by the
-trellis and the batch).  Larger trellises (K=24), and small ones whose blocks
-have fewer threads than a pair has table entries, stream:
+trellis and the batch), two steps a cluster barrier in one block and four
+where a frame spans a cluster (``chip_depth``).  Larger trellises (K=24),
+and small ones whose blocks have fewer threads than a pair has table
+entries, stream:
 ``acs_large_pair_kernel``, one launch a pair with the metrics in device
 memory, the launch loop inside the C launcher, and an odd step count ends in
 one launch of the step kernel (counted as ``acs_update_large``), as in the JAX
@@ -46,7 +48,7 @@ from .large_k import (_check_inputs, _shift_to_zero, acs_update_large_ref, code_
                       launch_large, metric_dtype_for)
 
 __all__ = ["acs_update_large2", "acs_update_large2_ref", "renorm_schedule", "launch_block",
-           "chip_blocks"]
+           "chip_blocks", "chip_depth"]
 
 DTYPES = {"int16": torch.int16, "int32": torch.int32}
 CHIP_STATES = 16384   # most states a block of the on-chip form holds (two 64 KB buffers)
@@ -63,9 +65,14 @@ def chip_blocks(code: CodeSpec, batch: int) -> int:
     (``S <= 4 * CHIP_THREADS``), one block; above, the most blocks (each at
     most ``CHIP_STATES`` states) that run every frame in one wave
     (``batch * blocks <= CHIP_WAVE``), else the fewest.  Measured at K=11-16
-    (``harness/probe_large.py``, PERF.md): a cluster costs a fixed 1.5 us a
-    pair, paid back from K=14 while one wave holds every frame.  The
-    launcher takes the count and checks it."""
+    on the pair body (``harness/probe_large.py``, PERF.md): a cluster cost a
+    fixed 1.5 us a pair, paid back from K=14 while one wave holds every
+    frame.  Its barrier costs a fixed time a unit of steps, about as much as
+    the unit's work (at Cassini B=64 in two blocks 3.129 us at two steps a
+    barrier and 3.104 us at four; NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+    section 6, row 7), so ``chip_depth`` runs four steps a barrier where a
+    frame spans a cluster, and pays it half as often.  The launcher takes
+    the count and checks it."""
     S = code.num_states
     if not 8 <= code.K <= 24 or S // 4 > CHIP_STATES:
         return 0
@@ -74,6 +81,19 @@ def chip_blocks(code: CodeSpec, batch: int) -> int:
     fits = [cl for cl in (1, 2, 4) if S // cl <= CHIP_STATES]
     wave = [cl for cl in fits if batch * cl <= CHIP_WAVE]
     return max(wave) if wave else fits[0]
+
+
+def chip_depth(blocks: int, want_g2: bool, T: int) -> int:
+    """Trellis steps between two cluster barriers of the on-chip kernel for
+    a ``T``-step call of ``blocks`` blocks a frame: four where a frame spans
+    a cluster (``blocks >= 2``), no G_2 planes are wanted and the call has
+    four steps or more, else two.  A cluster barrier, and the reads of the
+    peers' shared memory after it, cost a fixed time (``chip_blocks``),
+    which four steps a barrier pay half as often; in one block the barrier
+    is a ``__syncthreads``.  The four-step launch counts under its
+    counter's name with ``_quads`` appended.  The launcher takes the depth
+    and checks it."""
+    return 4 if blocks >= 2 and not want_g2 and T >= 4 else 2
 
 
 def renorm_schedule(code: CodeSpec, numeric: NumericSpec, T: int,
@@ -199,23 +219,30 @@ def launch_chip(code: CodeSpec, numeric: NumericSpec, metrics: torch.Tensor,
                 strides: tuple[int, int], t0: int, T: int, rn: int, blocks: int,
                 g2: torch.Tensor | None = None, g2_strides: tuple[int, int] = (0, 0),
                 counter: str = "acs_update_large2", fresh: bool = False,
-                tail_shift: bool = True):
+                tail_shift: bool = True, _depth: int | None = None):
     """Check and call the on-chip launcher of ``csrc/viterbi_large.cu``: one
     launch for steps ``[t0, t0 + T)``, ``blocks`` blocks a frame (1, 2 or
     4), renormalising after every ``rn``-th pair; an odd ``T``'s last step
     takes its own entry shift unless ``tail_shift`` is off (as in
     ``acs_update_large``).  ``offset`` accumulates the shifts (``fresh``: is
-    set to them).  Returns the final metrics ``[B, S]`` int32."""
+    set to them).  ``chip_depth`` gives the steps a cluster barrier, and a
+    four-step launch counts as ``counter + "_quads"``; ``_depth`` (2 or 4)
+    overrides it, for ``harness/probe_large.py``, which times the pair body
+    where a frame spans a cluster, and for the test of the launcher's check.
+    Returns the final metrics ``[B, S]`` int32."""
     B, T_sym, R = symbols.shape
     _build.check_cuda_int32("metrics", metrics, (B, code.num_states))
     _build.check_cuda_int32("symbols", symbols, (B, T_sym, R))
     _build.check_cuda_int32("offset", offset, (B,))
     m_out = torch.empty_like(metrics)
     polys = (ctypes.c_int * R)(*code.abs_polys())
+    depth = chip_depth(blocks, g2 is not None, T) if _depth is None else _depth
+    if depth == 4:
+        counter += "_quads"
     _build.launch(counter, "viterbi_acs_large2_chip", metrics.device,
                   metrics.data_ptr(), symbols.data_ptr(), polys, m_out.data_ptr(),
                   words.data_ptr(), g2.data_ptr() if g2 is not None else None, offset.data_ptr(),
-                  blocks, *code_args(code, numeric), B, T_sym, t0, T, rn, int(fresh),
+                  blocks, depth, *code_args(code, numeric), B, T_sym, t0, T, rn, int(fresh),
                   int(tail_shift), *strides, *g2_strides)
     return m_out
 

@@ -233,6 +233,24 @@ def test_chip_blocks(K, batch, blocks):
         assert pc.num_states // blocks // 4 >= 32
 
 
+@pytest.mark.parametrize("want_g2", [False, True], ids=["words", "g2"])
+@pytest.mark.parametrize("batch", [1, 3, 32, 64, 65, 128])
+@pytest.mark.parametrize("K", [11, 12, 13, 14, 15, 16, 17])
+def test_chip_depth(K, batch, want_g2):
+    """Steps a cluster barrier of the on-chip kernel: four exactly where a
+    frame spans a cluster (``chip_blocks >= 2``: K=14-15 up to 64 frames,
+    K=16-17 at any batch), for words alone and a call of four steps or more;
+    two in one block, with G_2 planes, or for fewer than four steps."""
+    pc = ported(J.CodeSpec("k", K, 3, tuple((1 << (K - 1)) | (2 * r + 1) for r in range(3))),
+                J.soft8_spec(3))[0]
+    blocks = plk2.chip_blocks(pc, batch)
+    spans = blocks >= 2
+    assert spans == (K >= 16 or (K >= 14 and batch <= 64))
+    for T in (2062, 4, 3, 1):
+        want = 4 if spans and not want_g2 and T >= 4 else 2
+        assert plk2.chip_depth(blocks, want_g2, T) == want
+
+
 # -- on the card: each CUDA kernel against its plain version ---------------
 
 @pytest.fixture
@@ -261,11 +279,11 @@ def test_cuda_large2(cuda_device, jc, spec, noise, n_bytes, steps, time_major):
     pc, pn = ported(jc, jn)
     sym, m0 = inputs(jc, jn, 5, n_bytes, noise, seed=11, lift=(2, 30))
     s, m = torch.from_numpy(sym[:, :steps]).contiguous().cuda(), torch.from_numpy(m0).cuda()
-    n = _build.LAUNCHES["acs_update_large2"]
+    n = launches("acs_update_large2")
     got = plk2.acs_update_large2(pc, pn, m, s, time_major=time_major)
     want = plk2.acs_update_large2_ref(pc, pn, m, s, time_major=time_major)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert _build.LAUNCHES["acs_update_large2"] == n + 1
+    assert launches("acs_update_large2") == n + 1
 
 
 @pytest.mark.cuda
@@ -280,6 +298,11 @@ def test_cuda_large(cuda_device, jc):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def launches(name):
+    """The launches of a counter, at either depth of the on-chip kernel."""
+    return _build.LAUNCHES[name] + _build.LAUNCHES[name + "_quads"]
+
+
 def cassini_card(spec, B, noise, seed):
     jn = getattr(J, spec)(6)
     pc, pn = ported(J.VITERBI615, jn)
@@ -292,9 +315,9 @@ def cassini_card(spec, B, noise, seed):
                          ids=["b1", "b3", "b64", "b64_788_pairs", "b3_788_pairs_tail"])
 def test_cuda_large2_cassini_on_chip(cuda_device, B, T):
     """Cassini soft8 on the on-chip form, one launch a call (four blocks a
-    frame at B=1 and 3, two at B=64): whole frames (shifts after pairs 393
-    and 787) and the 788-pair block, whose second shift follows the last
-    pair (with and without the odd tail)."""
+    frame at B=1 and 3, two at B=64, so four steps a cluster barrier): whole
+    frames (shifts after pairs 393 and 787) and the 788-pair block, whose
+    second shift follows the last pair (with and without the odd tail)."""
     pc, pn, m, s = cassini_card("soft8_spec", B, 3, seed=B + T)
     s = s[:, :T].contiguous()
     assert plk2.chip_blocks(pc, B) == (4 if B <= 32 else 2)
@@ -303,10 +326,91 @@ def test_cuda_large2_cassini_on_chip(cuda_device, B, T):
     got = plk2.acs_update_large2(pc, pn, m, s)
     want = plk2.acs_update_large2_ref(pc, pn, m, s)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert _build.LAUNCHES["acs_update_large2"] == n["acs_update_large2"] + 1
-    assert _build.LAUNCHES["acs_update_large"] == n["acs_update_large"]
+    assert _build.LAUNCHES["acs_update_large2_quads"] == n["acs_update_large2_quads"] + 1
+    assert all(_build.LAUNCHES[k] == n[k] for k in n if k != "acs_update_large2_quads")
     if T == 1576:
         assert (got[0].amin(dim=1) == 0).all()
+
+
+K16R3 = (0o147153, 0o126715, 0o151127)
+K17R3 = (0o247153, 0o326715, 0o351127)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("polys,B,T,high,rn,near", [
+    (J.VITERBI615.polys, 1, 2060, 3, 394, False), (J.VITERBI615.polys, 3, 2061, 3, 394, False),
+    (J.VITERBI615.polys, 32, 2062, 3, 394, False), (J.VITERBI615.polys, 64, 2059, 3, 394, False),
+    (J.VITERBI615.polys, 64, 2062, 3, 394, False), (J.VITERBI615.polys, 3, 1030, 20, 53, False),
+    (J.VITERBI615.polys, 64, 23, 111, 3, False), (J.VITERBI615.polys, 3, 22, 146, 1, False),
+    (J.VITERBI615.polys, 3, 10, 3, 0, True), (J.VITERBI615.polys, 64, 9, 3, 0, True),
+    (K16R3, 64, 21, 3, 0, False), (K16R3, 8, 24, 3, 0, True), (K17R3, 3, 22, 3, 0, False),
+    (J.VITERBI615.polys, 64, 20, 111, 3, False), (J.VITERBI615.polys, 3, 108, 20, 53, False),
+    (J.VITERBI615.polys, 64, 7196, None, 1199, False)],
+    ids=["cassini-b1-t0mod4", "cassini-b3-t1mod4", "cassini-b32-t2mod4", "cassini-b64-t3mod4",
+         "cassini-b64-frame", "cassini-rn53", "cassini-b64-rn3", "cassini-rn1",
+         "cassini-near-limit-even", "cassini-b64-near-limit-odd", "k16r3-b64", "k16r3-b8-near-limit",
+         "k17r3", "cassini-b64-rn3-last-pass", "cassini-rn53-last-pass",
+         "cassini-hard8-b64-last-pass"])
+def test_cuda_chip_four_steps_a_barrier(cuda_device, polys, B, T, high, rn, near):
+    """Where a frame spans a cluster the on-chip kernel runs four steps a
+    cluster barrier: its words, metrics and offset equal the plain version
+    bit for bit, and the call counts as ``acs_update_large2_quads``.
+    Cassini at four blocks a frame (B <= 32) and two (B=64), T = 0-3 mod 4
+    (a pair, the odd step, or both after the passes); soft inputs widened
+    to +-``high``, stored as int16, so that they renormalise every ``rn``
+    pairs (53: after the first pair of a pass, as after pair 52, and after
+    the second, as after 105; 3; 1: after both); an event after the first
+    pair of the last pass with no odd step after it (rn=3 at T=20, rn=53 at
+    T=108, and hard8, ``high`` None, whose rn is 1199, at T=7196); entry
+    metrics within 64 of the int32 limit (``near``); R=3 codes at K=16 (two
+    and four blocks) and K=17, the largest trellis on chip."""
+    K = max(p.bit_length() for p in polys)
+    jn = J.hard8_spec(len(polys)) if high is None else dataclasses.replace(
+        J.soft8_spec(len(polys)), name=f"soft{high}", soft_high=high, soft_low=-high,
+        metric_dtype="int16" if high > 3 else "auto")
+    pc, pn = ported(J.CodeSpec(f"k{K}r{len(polys)}", K, len(polys), polys), jn)
+    assert plk2.chip_blocks(pc, B) >= 2 and plk2.chip_depth(plk2.chip_blocks(pc, B), False, T) == 4
+    assert plk2.renorm_schedule(pc, pn, T)[1] == rn
+    rng = np.random.default_rng(B * T + (high or 1))
+    s = torch.from_numpy(rng.integers(jn.soft_low, jn.soft_high + 1,
+                                      size=(B, T, pc.R)).astype(np.int32)).cuda()
+    lo = 2**31 - 64 if near else 5
+    m = torch.from_numpy(rng.integers(lo, lo + 60, size=(B, pc.num_states)).astype(np.int32)).cuda()
+    n = dict(_build.LAUNCHES)
+    got = plk2.acs_update_large2(pc, pn, m, s)
+    assert _build.LAUNCHES["acs_update_large2_quads"] == n["acs_update_large2_quads"] + 1
+    assert all(_build.LAUNCHES[k] == n[k] for k in n if k != "acs_update_large2_quads")
+    want = plk2.acs_update_large2_ref(pc, pn, m, s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,want_g2,ok", [(64, False, True), (64, True, False),
+                                          (128, False, False)], ids=["two-blocks", "g2", "one-block"])
+def test_cuda_chip_launcher_checks_depth(cuda_device, B, want_g2, ok):
+    """The on-chip launcher takes four steps a cluster barrier only where
+    ``chip_depth`` may give it: a frame over two blocks or more and no G_2
+    planes (Cassini B=64 at two blocks a frame; B=128 at one)."""
+    pc, pn = ported(J.VITERBI615, J.soft8_spec(6))
+    T, blocks = 8, plk2.chip_blocks(pc, B)
+    assert (plk2.chip_depth(blocks, want_g2, T) == 4) == ok
+    s = torch.zeros((B, T, 6), dtype=torch.int32, device="cuda")
+    m = torch.zeros((B, pc.num_states), dtype=torch.int32, device="cuda")
+    words, strides = plk2.words_buffer(B, T, pc.decision_words, False, m.device)
+    g2 = torch.zeros((B, T // 2, pc.decision_words), dtype=torch.int32, device="cuda")
+
+    def call():
+        plk2.launch_chip(pc, pn, m, s, words, torch.zeros_like(m[:, 0]), strides, 0, T, 0, blocks,
+                         g2=g2 if want_g2 else None, g2_strides=(g2.stride(0), g2.stride(1)),
+                         _depth=4)
+
+    if ok:
+        call()
+        torch.cuda.synchronize()
+    else:
+        with pytest.raises(RuntimeError):
+            call()
 
 
 @pytest.mark.cuda
